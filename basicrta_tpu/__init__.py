@@ -1,4 +1,5 @@
-"""basicrta_tpu — TPU-native Bayesian single-cutoff residence-time analysis.
+"""basicrta_tpu — accelerator-native Bayesian single-cutoff residence-time
+analysis.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of ``basicrta``
 (Sexton et al. 2024, bioRxiv 10.1101/2024.11.07.622502): contact-map

@@ -52,11 +52,10 @@ class GibbsConfig:
     # gibbs.py:191) so `Gibbs(x).run()` matches it sample-for-sample in
     # distribution. The shipping CLI default is 2 (`--nchains`,
     # cli.py): production runs want split-R-hat/ESS convergence
-    # diagnostics, which need >= 2 chains; measured cost of the second
-    # chain is ~64-82% wall-clock on the round-5 throughput-bound
-    # kernel (BENCH agg_sweeps_2chain/two_chain_cost measure the
-    # shipping default; docs/design.md "Multi-chain production
-    # default").
+    # diagnostics, which need >= 2 chains; each chain is one more
+    # lane of the batched sampler (bench.py agg_sweeps_2chain /
+    # two_chain_cost measure the shipping default; docs/design.md
+    # "Multi-chain production default").
     n_chains: int = 1
     seed: int = 0
 

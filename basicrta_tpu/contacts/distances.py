@@ -152,9 +152,8 @@ def compact_contacts(dmin: jnp.ndarray, cutoff: float, cap: int):
     """Device-side sparsification of the dense (F, R1, R2) distance batch.
 
     Contacts are sparse (tens to hundreds of sub-cutoff pairs per frame out
-    of R1*R2), but the dense matrix is what crosses the host link — on
-    PCIe/tunnel-attached hosts that transfer, not the kernel, bounds
-    contact throughput. ``top_k`` on the hit-masked negated distances packs
+    of R1*R2), but the dense matrix is what crosses the host link, and
+    that transfer, not the kernel, can bound contact throughput. ``top_k`` on the hit-masked negated distances packs
     every sub-cutoff entry (exact f32 values) into a fixed (F, cap) buffer.
 
     Returns:

@@ -250,12 +250,10 @@ class MapContacts:
             np.asarray(resids2))
         # host-side residue-padded upload layout: the host lays each frame
         # out as (R1*P1 + R2*P2, 3) with atoms grouped by residue, so the
-        # device pass is a pure reshape — a device gather over ~1e5
-        # scattered atom rows measures ~100x the whole distance kernel on
-        # TPU (scattered HBM reads don't vectorize), and an eager gather
-        # additionally re-uploads its index constants every batch on
-        # tunnel/PCIe-attached hosts. Pad slots replicate the group's
-        # first atom and are masked out of every distance min.
+        # device pass is a pure reshape: no device gather over ~1e5
+        # scattered atom rows, and no index constants re-uploaded with
+        # every batch. Pad slots replicate the group's first atom and are
+        # masked out of every distance min.
         gi1, gi2 = self.group_idx1, self.group_idx2
         lay1 = self.indices1[np.where(gi1 < 0, 0, gi1)].ravel()
         lay2 = self.indices2[np.where(gi2 < 0, 0, gi2)].ravel()
@@ -271,7 +269,7 @@ class MapContacts:
                                np.arange(len(self._host_layout))))
         n_pairs_total = self._R1 * self._R2
         self._fuse_transfer = n_pairs_total < 2 ** 24
-        # frame-axis data parallelism over chips: the TPU equivalent of the
+        # frame-axis data parallelism over devices: the counterpart of the
         # reference's trajectory-slice pool fan-out (contacts.py:60-75;
         # SURVEY.md section 2 parallelism item 1). Each device computes the
         # distance kernel for its frame shard; no collectives needed.
@@ -320,9 +318,9 @@ class MapContacts:
 
     def _fuse(self, n, cidx, cdist):
         # pack (n, idx, dist) into ONE buffer when the pair indices are
-        # f32-exact: each host sync is a full link round-trip on
-        # tunnel/PCIe-attached hosts, so one transfer instead of three is
-        # a direct throughput win for the streaming loop
+        # f32-exact: each host sync is a full link round-trip, so one
+        # transfer instead of three is a direct throughput win for the
+        # streaming loop
         if not self._fuse_transfer:
             return (n, cidx, cdist)
         return jnp.concatenate([n.astype(jnp.float32)[:, None],
@@ -471,8 +469,8 @@ class MapContacts:
 
         def dense_pack(prep):
             # compact on device: only sub-cutoff entries cross the host
-            # link (the dense (F, R1, R2) transfer, not the kernel, bounds
-            # throughput on tunnel/PCIe-attached hosts). dmin stays on
+            # link (the dense (F, R1, R2) transfer, not the kernel, can
+            # bound throughput). dmin stays on
             # device as the exact fallback for overflowing frames. Small
             # systems (n_pairs <= cap) skip compaction — the packed
             # idx+dist buffers would be LARGER than the dense matrix.
@@ -581,8 +579,7 @@ class MapContacts:
                 progress_cb(int(batch.frame_ids[-1]) + 1)
 
         # two-stage pipeline: a prefetch thread prepares + uploads batch
-        # i+1 (host layout, quantization, the host->device copy — the
-        # dominant per-batch cost on tunnel/PCIe-attached hosts) while the
+        # i+1 (host layout, quantization, the host->device copy) while the
         # device computes batch i and the main thread decodes batch i-1's
         # results; kernel dispatch is async, the sync happens in collect
         from concurrent.futures import ThreadPoolExecutor

@@ -11,7 +11,7 @@ sampler chains migrate into this framework without the legacy stack:
 
     events = load_reference_contacts("contacts_7.0.pkl")   # -> ContactEvents
     g = load_reference_gibbs("basicrta-7.0/W313/gibbs_110000.pkl")
-    g.process_gibbs()                                      # TPU pipeline
+    g.process_gibbs()                                      # this pipeline
 
 Class resolution is allowlisted: numpy array-reconstruction machinery,
 container types, and stubbed basicrta/MDAnalysis classes; everything else

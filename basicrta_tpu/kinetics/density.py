@@ -78,12 +78,11 @@ def accumulate_frames_sharded(positions, weights, mask, gmin, delta,
     The trajectory's frame axis is data-parallel (the reference fans the
     density loop out per frame serially, pwdensity.py:254-264): each chip
     voxelizes its frame shard and a ``psum`` over ``axis`` reduces the
-    (K, nx, ny, nz) partial grids — grids ride ICI once per call, frames
-    never leave their chip. Frames are padded to the mesh size with
+    (K, nx, ny, nz) partial grids — grids cross the interconnect once per
+    call, frames never leave their device. Frames are padded to the mesh size with
     zero-mask rows, so results equal the unsharded scatter-add exactly
     (dryrun-checked, __graft_entry__.py)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
 
     n = mesh.shape[axis]
     F = positions.shape[0]
@@ -101,7 +100,7 @@ def accumulate_frames_sharded(positions, weights, mask, gmin, delta,
         g, s = _accumulate_core(p, w, m, gmin, delta, nbins)
         return jax.lax.psum(g, axis), jax.lax.psum(s, axis)
 
-    fn = shard_map(inner, mesh=mesh,
+    fn = jax.shard_map(inner, mesh=mesh,
                    in_specs=(P(axis), P(axis), P(axis)),
                    out_specs=(P(), P()))
     sh = NamedSharding(mesh, P(axis))

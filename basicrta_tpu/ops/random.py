@@ -1,12 +1,12 @@
-"""Branch-free TPU samplers for Binomial, Gamma, and Dirichlet draws.
+"""Branch-free samplers for Binomial, Gamma, and Dirichlet draws.
 
 ``jax.random.binomial`` / ``gamma`` are rejection samplers built on
-``lax.while_loop``; on TPU each call costs O(100 us) of control-flow latency
-regardless of size, which dominates a Gibbs sweep whose element count is
-small (the collapsed sampler draws a 15-step binomial chain over ~10^3
-unique values per sweep, 110k times). These replacements unroll a *fixed*
-number of rejection rounds as masked vector ops — no data-dependent control
-flow, so XLA fuses the whole sweep into straight-line VPU code.
+data-dependent ``lax.while_loop``s, a fixed control-flow cost per call that
+would dominate a Gibbs sweep whose element count is small (the collapsed
+sampler draws a 15-step binomial chain over ~10^3 unique values per sweep,
+110k times). These replacements run a *fixed* number of rejection rounds
+as masked vector ops — no data-dependent control flow, so XLA compiles the
+sweep into straight-line vector code.
 
 Exactness: each sampler is the textbook exact algorithm (binomial inversion
 via the PMF recurrence for n*p small, Hormann's BTRS transformed rejection
@@ -51,16 +51,15 @@ def _inversion_counts(u, n, p, terms: int, dtype):
 
     The PMF recurrence ``pmf_{k+1} = pmf_k (n-k)/(k+1) p/q`` is evaluated
     as a log-space cumsum over a (terms, ...) table instead of a
-    sequential scan — on TPU the sequential form costs ~terms kernel
-    latencies per call; the parallel form is two cumulative ops. Shared
+    sequential scan: two cumulative ops instead of ~terms dependent
+    steps. Shared
     by :func:`_binomial_inversion` and :func:`binomial_small` so the
     precision-critical precise-log usage lives in ONE place.
     """
     tiny = jnp.finfo(dtype).tiny
     q = jnp.maximum(1.0 - p, tiny)
-    # precise log/exp: XLA:TPU's native lowerings approximate, and the
-    # n-fold amplification in n*log(q) scales the whole CDF — measured
-    # chi2 p ~ 1e-131 for Binomial(100, 0.02) draws (ops/precise.py)
+    # precise log/exp: an approximate native log/exp is amplified n-fold
+    # by n*log(q) and scales the whole CDF (ops/precise.py)
     logpmf0 = n * log_f32(q)
     log_ratio = log_f32(jnp.maximum(p, tiny)) - log_f32(q)
     j = jnp.arange(terms - 1, dtype=dtype).reshape(

@@ -1,15 +1,16 @@
 """Multi-host (pod / multi-slice) execution.
 
 The reference scales across nodes with a Slurm job array — one residue per
-job (reference scripts/create_jobs.sh:16-20, submit_tmp.slu). The TPU
-equivalent is one SPMD program over every chip of a pod: each host runs
+job (reference scripts/create_jobs.sh:16-20, submit_tmp.slu). The
+equivalent here is one SPMD program over every device of a cluster: each host runs
 the same driver, ``jax.distributed`` wires the hosts into one runtime, and
 the residue/chain lanes shard over the GLOBAL device set. Lane sharding is
 collective-free, so cross-host traffic is zero during sampling; only the
 final thinned-sample gather crosses DCN.
 
-Typical launch (same command on every host; the TPU runtime supplies
-coordinator/process env on Cloud TPU VMs automatically):
+Typical launch (same command on every host; a Slurm/MPI launcher or
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
+supply the coordinator and process id):
 
     python -m basicrta_tpu.cli gibbs --contacts contacts_7.0.npz \
         --multihost --ndevices 0
@@ -44,13 +45,7 @@ def _cluster_env_detected() -> bool:
                 return True
         except ValueError:
             pass
-    # Cloud TPU pod slices export the worker host list / megascale
-    # coordinator on every VM. A single-entry host list (the local runtime
-    # exports TPU_WORKER_HOSTNAMES=localhost even on one VM) is not a
-    # multi-process cluster.
-    hostnames = env.get("TPU_WORKER_HOSTNAMES", "")
-    return ("," in hostnames
-            or bool(env.get("MEGASCALE_COORDINATOR_ADDRESS")))
+    return False
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -58,11 +53,11 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Join this process into the global JAX runtime (idempotent).
 
-    With no arguments, relies on the TPU runtime's automatic environment
-    (Cloud TPU VMs / GKE set the coordinator for the pod slice); when that
-    is absent (single process) it degrades to a no-op. On other clusters
-    pass the coordinator explicitly or export ``JAX_COORDINATOR_ADDRESS``
-    / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``.
+    With no arguments, relies on the cluster environment JAX detects
+    (Slurm, MPI); when none is present (single process) it degrades to a
+    no-op. Otherwise pass the coordinator explicitly or export
+    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID``.
 
     Must run before anything initializes an XLA backend —
     ``jax.distributed.initialize`` is called FIRST here (never after a

@@ -2,7 +2,7 @@
 
 The reference scales across machines with a Slurm array of one-residue jobs
 (reference scripts/create_jobs.sh, submit_tmp.slu); communication is the
-filesystem. The TPU-native equivalents here:
+filesystem. The device-native equivalents here:
 
 - **lane (data) parallelism**: the residue x chain batch axis is sharded
   over the mesh ('lanes'); each chip sweeps its lanes independently — no
@@ -11,7 +11,8 @@ filesystem. The TPU-native equivalents here:
 - **event (value) parallelism**: for residues too large for one chip's
   comfort, the unique-value axis is sharded over the mesh ('events'); each
   chip draws the multinomial counts for its value slice and the sufficient
-  statistics (N_k, T_k) are combined with ``psum`` over ICI each sweep —
+  statistics (N_k, T_k) are combined with ``psum`` each sweep (NCCL
+  between GPUs) —
   the chain state stays replicated. This is the sequence-parallel analogue
   for this workload (SURVEY.md section 5 'long-context').
 
@@ -117,7 +118,9 @@ def event_sharded_blocks(mesh: Mesh, cfg: GibbsConfig, n_blocks: int,
                     probs = jax.nn.softmax(logz, axis=-1)
                     m = _tiered_multinomial(kmult, c, probs, tiers)
                     Ns = jax.lax.psum(jnp.sum(m, axis=0), "events")
-                    Ts = jax.lax.psum(v @ m, "events")
+                    Ts = jax.lax.psum(jnp.matmul(
+                        v, m, precision=jax.lax.Precision.HIGHEST),
+                        "events")
                     return _conjugate_update(kconj, Ns, Ts, cfg.alpha_eff,
                                              cfg.gamma_shape,
                                              cfg.gamma_rate), None

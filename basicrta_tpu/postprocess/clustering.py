@@ -121,7 +121,8 @@ def _votes_scan(key, W, R, values, counts, L, n_clusters: int,
         m = _tiered_multinomial(key_j, counts,
                                 jax.nn.softmax(logz, axis=-1), tiers)
         onehot = jax.nn.one_hot(lab, n_clusters, dtype=m.dtype)  # -1 -> 0
-        return votes + m @ onehot, None
+        return votes + jnp.matmul(
+            m, onehot, precision=jax.lax.Precision.HIGHEST), None
 
     keys = jax.random.split(key, S)
     votes0 = jnp.zeros((values.shape[0], n_clusters), jnp.float32)

@@ -20,6 +20,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+# f32 products of data run at full precision (a GPU would otherwise use
+# TF32 and keep about three decimal digits)
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 class GMMParams(NamedTuple):
     means: jax.Array       # (C, D)
@@ -44,7 +48,7 @@ def _component_log_prob(X, means, chols):
 def _kmeanspp_init(key, X, sw, n_components, lloyd_iters=10):
     """kmeans++ seeding + Lloyd refinement; returns centers (C, D).
 
-    Round-5 schedule notes (both bitwise-identical to the original
+    Schedule notes (both bitwise-identical to the original
     full-matrix formulation, tests/test_gmm.py):
 
     - seeding carries the running min distance-to-chosen-centers and
@@ -82,7 +86,7 @@ def _kmeanspp_init(key, X, sw, n_components, lloyd_iters=10):
         onehot = jax.nn.one_hot(assign, n_components, dtype=X.dtype)
         onehot = onehot * sw[:, None]
         Nk = jnp.maximum(jnp.sum(onehot, axis=0), 1e-12)
-        new = (onehot.T @ X) / Nk[:, None]
+        new = jnp.matmul(onehot.T, X, precision=_HIGHEST) / Nk[:, None]
         # keep old center for empty clusters
         new = jnp.where(jnp.sum(onehot, axis=0)[:, None] > 0, new, centers)
         return i + 1, new, assign, jnp.all(assign == prev_assign)
@@ -99,9 +103,10 @@ def _m_step(X, sw, resp, reg_covar):
     D = X.shape[-1]
     wresp = resp * sw[:, None]                                    # (N, C)
     Nk = jnp.maximum(jnp.sum(wresp, axis=0), 10 * jnp.finfo(X.dtype).eps)
-    means = (wresp.T @ X) / Nk[:, None]                           # (C, D)
+    means = jnp.matmul(wresp.T, X, precision=_HIGHEST) / Nk[:, None]
     diff = X[:, None, :] - means[None, :, :]                      # (N, C, D)
-    covs = jnp.einsum("nc,ncd,nce->cde", wresp, diff, diff) / Nk[:, None, None]
+    covs = jnp.einsum("nc,ncd,nce->cde", wresp, diff, diff,
+                      precision=_HIGHEST) / Nk[:, None, None]
     covs = covs + reg_covar * jnp.eye(D, dtype=X.dtype)[None]
     chols = jnp.linalg.cholesky(covs)
     log_w = jnp.log(Nk / jnp.sum(Nk))

@@ -84,12 +84,13 @@ class Gibbs:
     def run(self, mode: str = "auto", save: bool = True) -> "Gibbs":
         """Execute the sampler (reference gibbs.py:176-219).
 
-        Modes: 'pallas' (fused kernel; fastest on TPU), 'collapsed'
-        (deduplicated XLA path), 'dense' (literal per-event sampler), or
-        'auto' (pallas on TPU, collapsed elsewhere).
+        Modes: 'pallas' (the fused segment kernel; NVIDIA GPUs only),
+        'collapsed' (deduplicated XLA path), 'dense' (literal per-event
+        sampler), or 'auto' (pallas on a GPU, collapsed elsewhere).
         """
         if mode == "auto":
-            mode = ("pallas" if jax.devices()[0].platform == "tpu"
+            from basicrta_tpu.sampler.batch import resolve_engine
+            mode = ("pallas" if resolve_engine("auto") == "pallas"
                     else "collapsed")
         if mode == "pallas":
             from basicrta_tpu.sampler.batch import run_residues

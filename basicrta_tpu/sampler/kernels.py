@@ -8,12 +8,12 @@ One Gibbs sweep:
 1. responsibilities ``z_ik \propto w_k r_k exp(-r_k x_i)``
    (reference gibbs.py:196-197),
 2. component indicators ``s_i ~ Categorical(z_i)`` — the reference draws
-   these with an N x K multinomial + argmax (gibbs.py:200); on TPU we use
+   these with an N x K multinomial + argmax (gibbs.py:200); here we use
    Gumbel-max via ``jax.random.categorical`` on the logits, which is the
    same distribution without materializing the sample tensor,
 3. sufficient statistics ``N_k = #\{s_i = k\}`` and ``T_k = sum x_i [s_i=k]``
-   (gibbs.py:203-207) — computed here as a one-hot matmul so the reduction
-   rides the MXU,
+   (gibbs.py:203-207) — computed here as a one-hot product at full f32
+   precision,
 4. conjugate draws ``w ~ Dirichlet(alpha + N)`` and
    ``r_k ~ Gamma(a + N_k, rate = b + T_k)`` (gibbs.py:210-211).
 
@@ -86,9 +86,9 @@ def _conjugate_update(key: jax.Array, Ns: jax.Array, Ts: jax.Array,
                       unroll: bool = False) -> MixtureState:
     """Dirichlet/Gamma conjugate posterior draws (reference gibbs.py:210-211).
 
-    Uses the branch-free fixed-unroll samplers (ops.random) — the stock
-    while_loop-based jax.random rejection samplers cost ~40-100 us of
-    control-flow latency per call on TPU, which would dominate the sweep.
+    Uses the fixed-round samplers of ops.random: a bounded number of
+    masked rejection rounds instead of the stock data-dependent
+    while_loop samplers of jax.random.
     """
     kw, kr = jax.random.split(key)
     weights = btrandom.dirichlet(kw, alpha + Ns, unroll=unroll)
@@ -121,7 +121,7 @@ def dense_sweep(key: jax.Array, state: MixtureState, times: jax.Array,
     if mask is not None:
         onehot = onehot * mask[:, None]
     Ns = jnp.sum(onehot, axis=0)
-    Ts = times @ onehot                                           # MXU matmul
+    Ts = jnp.matmul(times, onehot, precision=jax.lax.Precision.HIGHEST)
     new_state = _conjugate_update(kconj, Ns, Ts, cfg.alpha_eff,
                                   cfg.gamma_shape, cfg.gamma_rate)
     if return_indicator:
@@ -131,10 +131,8 @@ def dense_sweep(key: jax.Array, state: MixtureState, times: jax.Array,
 
 # Multiplicity bound of the middle tier: values with counts <= this use the
 # complete small-table inversion sampler instead of the general one.
-# 16 measured best on v5e (745k vs 742k agg sweeps/s at 8): widening the
-# middle tier shrinks the expensive inversion+BTRS head tier by a whole
-# 128-lane row on W313-profile data while the 17-step fixed inversion
-# stays pure straight-line vector code.
+# Widening the middle tier shrinks the expensive inversion+BTRS head tier
+# while the 17-step inversion stays a fixed-length walk.
 SMALL_NMAX = 16
 
 
@@ -193,7 +191,7 @@ def collapsed_sweep(key: jax.Array, state: MixtureState, values: jax.Array,
     probs = jax.nn.softmax(logz, axis=-1)
     m = _tiered_multinomial(kmult, counts, probs, tiers, unroll)  # (V, K)
     Ns = jnp.sum(m, axis=0)
-    Ts = values @ m                                               # (K,)
+    Ts = jnp.matmul(values, m, precision=jax.lax.Precision.HIGHEST)  # (K,)
     new_state = _conjugate_update(kconj, Ns, Ts, cfg.alpha_eff,
                                   cfg.gamma_shape, cfg.gamma_rate, unroll)
     if return_counts:

@@ -1,66 +1,60 @@
-"""Fused Pallas TPU kernels for the collapsed Gibbs sweep.
+"""Fused Gibbs-segment kernel for NVIDIA GPUs (Pallas, Triton route).
 
-Two kernels share one sufficient-statistics body:
+:func:`segment_pallas` advances every lane of a bucket by ``n_blocks * g``
+collapsed Gibbs sweeps in ONE ``pallas_call``. The XLA engine
+(``batch._segment``) runs each sweep as a nest of loops — the sweep scan,
+the K-1 stage conditional-binomial scan per tier and the rejection rounds
+inside the binomial and gamma samplers — and XLA:GPU issues every loop
+iteration as its own kernel launches. Here the whole nest is one program
+per lane:
 
-- :func:`sweep_stats` — one ``pallas_call`` per sweep computing, per batch
-  lane, the statistics (N_k, T_k) of the conditional multinomial draw:
-  responsibilities, suffix sums, and the tiered conditional-binomial chain
-  all run in VMEM with the on-core PRNG — no HBM intermediates (the XLA path
-  materializes the (T, B, V) inversion tables and ~10 further (B, V, K)
-  temporaries per sweep). Used by tests and as the building block reference.
-- :func:`segment_pallas` — the production engine: ONE ``pallas_call`` runs
-  ``n_blocks * g`` whole sweeps with the (w, r) chain state held in VMEM and
-  the Dirichlet/Gamma conjugate update computed *inside* the kernel
-  (Marsaglia-Tsang gamma on the (G, K) state tile), so a 10,000-sweep
-  segment costs one kernel launch instead of 10,000 launch round-trips —
-  launch latency was the single-chip throughput ceiling at ~1.2 ms/sweep.
+- a ``fori_loop`` over sweeps, with the (w, r) chain state carried in
+  registers and a thinned snapshot stored every g sweeps;
+- inside each sweep, loops over value chunks of 128 columns. Within a
+  chunk the K-stage chain accumulates the sufficient statistics
+  (N_k, T_k) into state-sized vectors, so the chunk width, not V, bounds
+  the registers a program needs;
+- the chunk loops follow the multiplicity tiers of the sorted value axis:
+  chunks holding counts > SMALL_NMAX draw with inversion + BTRS, chunks
+  with counts <= SMALL_NMAX with a complete fixed-depth inversion, and
+  chunks of counts in {0, 1} with one inverse-CDF categorical;
+- the Dirichlet/Gamma conjugate update runs in the same program on the
+  state vector, K padded to a power of two with masked components.
 
-Value columns are laid out as (SL, 128) tiles (lane axis fully utilized) and
-must be sorted by multiplicity descending with tier boundaries aligned to
-whole 128-lane rows:
-
-- rows [0, head_rows): unbounded counts -> 64-term inversion + BTRS,
-- rows [head_rows, small_rows): counts <= SMALL_NMAX -> complete
-  fixed-depth inversion (SMALL_NMAX + 1 terms),
-- rows [small_rows, SL): counts in {0, 1} -> Bernoulli thinning.
+Every random number comes from the stateless counter hash
+:func:`_hash_bits` of (seed, lane, call site, loop counter, column index).
+Sweeps are seeded by their absolute index, so a run resumes bit-exactly at
+any segmentation, and the kernel draws the same stream on the GPU as in
+interpret mode on the CPU. Every sum is an f32 reduction (no ``pl.dot``,
+which would run in TF32).
 """
 
 from __future__ import annotations
 
 import functools
-import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from basicrta_tpu.config import GibbsConfig
-from basicrta_tpu.ops.precise import (exp_f32 as _exp_f32,
-                                      log_f32 as _log_f32,
-                                      pow_smallint as _pow_smallint,
-                                      stirling_tail as _stirling_tail)
+from basicrta_tpu.ops.precise import stirling_tail as _stirling_tail
 from basicrta_tpu.sampler.kernels import MixtureState, SMALL_NMAX
 
-_LANES = 128
-_GROUP = 64       # lanes per kernel program (VMEM permitting); fewer
-                  # sequential grid programs -> better VPU occupancy
-                  # (G=64 measured +6% over G=32 on the 300-lane bench)
-_INV_FULL = 32    # inversion depth: covers n*p <= 10 beyond +6.9 sigma
-                  # (all-steps-miss < 1e-11 per draw; mode fallback beyond)
+_CHUNK = 128         # value columns per chunk (power of two)
+_NUM_WARPS = 4       # one column per thread at the default chunk
+_INV_FULL = 32       # head-tier inversion depth: covers n*p <= 10 beyond
+                     # +6.9 sigma (all-steps-miss < 1e-11 per draw)
 _INV_SMALL = SMALL_NMAX + 1
-_BTRS_ROUNDS = 12
+_BTRS_ROUNDS = 12    # failure < (0.21)^12 ~ 7e-9 -> mode fallback
+_MT_ROUNDS = 8       # failure < (0.05)^8 ~ 4e-11 -> mode fallback
 _TINY = 1e-30
 
 
 def _bits_to_uniform(bits):
-    """uint32 bits -> U[2^-25, 1) on the 24-bit mantissa grid.
-
-    Mosaic has no uint32->f32 cast; the high-24-bit value fits int32, which
-    does convert.
-    """
+    """uint32 bits -> U[2^-25, 1) on the 24-bit mantissa grid."""
     u = ((bits >> 8).astype(jnp.int32).astype(jnp.float32)
          * (1.0 / 16777216.0))
     return jnp.maximum(u, 1.0 / 33554432.0)
@@ -76,154 +70,57 @@ def _murmur_fmix(h):
     return h
 
 
-def _hash_bits(seed, lane, tag, t, shape):
+def _hash_bits(seed, lane, site, t, elem):
     """Stateless counter-based random bits: hash of (seed, lane, static
-    call-site tag, loop counter, element index). Used when the hardware
-    PRNG is unavailable (the TPU interpreter used by CPU tests) — the
-    device path uses pltpu.prng_random_bits."""
-    elem = jax.lax.broadcasted_iota(jnp.uint32, shape, 0)
-    for d in range(1, len(shape)):
-        elem = (elem * jnp.uint32(0x27D4EB2F)
-                + jax.lax.broadcasted_iota(jnp.uint32, shape, d))
-    h = (jnp.uint32(seed) * jnp.uint32(0x9E3779B9)
-         ^ jnp.uint32(lane) * jnp.uint32(0x85EBCA6B))
-    h = _murmur_fmix(h ^ (jnp.uint32(tag) * jnp.uint32(0xC2B2AE35)
-                          + jnp.asarray(t, jnp.uint32)))
+    call-site tag, loop counter, element index ``elem`` (uint32 array))."""
+    h = (jnp.asarray(seed).astype(jnp.uint32) * jnp.uint32(0x9E3779B9)
+         ^ jnp.asarray(lane).astype(jnp.uint32) * jnp.uint32(0x85EBCA6B))
+    h = _murmur_fmix(h ^ (jnp.uint32(site) * jnp.uint32(0xC2B2AE35)
+                          + jnp.asarray(t).astype(jnp.uint32)))
     return _murmur_fmix(h ^ _murmur_fmix(elem))
 
 
 class _Rng:
-    """Per-kernel uniform source; hardware PRNG or portable hash."""
+    """Uniform source of one (sweep seed, lane): every call site draws
+    from its own tag, so the stream of a site does not depend on how many
+    draws other sites made."""
 
-    def __init__(self, use_hash, seed, lane):
-        self.use_hash = use_hash
+    def __init__(self, seed, lane):
         self.seed = seed
         self.lane = lane
         self.site = 0  # static call-site counter
 
-    def uniform(self, shape, t=0):
-        if self.use_hash:
-            self.site += 1
-            return _bits_to_uniform(
-                _hash_bits(self.seed, self.lane, self.site, t, shape))
+    def uniform(self, elem, t=0):
+        self.site += 1
         return _bits_to_uniform(
-            pltpu.prng_random_bits(shape).astype(jnp.uint32))
+            _hash_bits(self.seed, self.lane, self.site, t, elem))
 
 
-def _gammaln(x):
-    """log-Gamma via Stirling with a 6-term shift for small arguments:
-    lgamma(x) = lgamma(x+6) - log(x (x+1) ... (x+5)) for x < 6.
-
-    Error < 1e-7 relative for x > 0 — below f32 resolution. Chosen over
-    Lanczos because it needs ONE divide (Lanczos needs eight); gammaln is
-    the hottest op of the BTRS acceptance test, which dominated the fused
-    sweep kernel (~30% of sweep time went to Lanczos divides).
-
-    Only the (xs - 0.5) log xs term pays for the precise polynomial log
-    (its error is amplified by xs, which reaches the binomial count n in
-    the accept test); the shift correction log(prod) is bounded
-    (|log| < 12.7) so the native op's relative error stays < 1e-3
-    absolute — statistically invisible — and Mosaic's transcendental
-    unit is far cheaper than the 15-op polynomial on this hot per-round
-    path (see ops/precise.gammaln_f32)."""
-    small = x < 6.0
-    xb = jnp.where(small, x, 1.0)   # benign operand on the large branch
-    prod = (xb * (xb + 1.0) * (xb + 2.0) * (xb + 3.0) * (xb + 4.0)
-            * (xb + 5.0))
-    xs = jnp.where(small, x + 6.0, x)
-    inv = 1.0 / xs
-    inv2 = inv * inv
-    series = inv * (1.0 / 12.0 - inv2 * (1.0 / 360.0 - inv2 / 1260.0))
-    lg = ((xs - 0.5) * _log_f32(xs) - xs + 0.9189385332046727 + series)
-    return lg - jnp.where(small, jnp.log(prod), 0.0)
-
-
-def _binom_inversion(u, n, p, depth, early_exit=True, nmax_bits=0):
-    """CDF-inversion binomial, complete for counts < depth (exact when
-    n < depth); vectorized over the tile.
-
-    ``early_exit`` stops the CDF walk once every element's uniform is
-    covered; ``early_exit=False`` unrolls ``depth`` straight-line steps.
-    Measured on v5e, straight-line wins decisively for the sweep kernel:
-    each early-exit iteration pays a full-tile reduction plus a scalar
-    branch, serializing the VPU, while the fixed walk is pure vector code
-    (flops are nearly free at these tile sizes).
-
-    ``nmax_bits > 0`` asserts n < 2**nmax_bits (the small tier's static
-    bound) and computes q**n by binary exponentiation instead of
-    exp/log.
-    """
+def _binom_inversion(u, n, p, depth: int):
+    """CDF-inversion binomial walking ``depth`` PMF terms, complete for
+    counts < depth (exact when n < depth)."""
     q = jnp.maximum(1.0 - p, _TINY)
     ratio = p / q
-    # precise exp/log: the n-fold amplification makes the native
-    # approximations scale the whole CDF (see _log_f32)
-    if nmax_bits:
-        pmf0 = _pow_smallint(q, n, nmax_bits)
-    else:
-        pmf0 = _exp_f32(n * _log_f32(q))
+    # log1p: 1 - p rounds away the small p that n * log(q) amplifies
+    pmf0 = jnp.exp(n * jnp.log1p(-jnp.minimum(p, 1.0 - 1e-7)))
 
-    def step(t, cdf, pmf, m):
-        m = m + (u > cdf).astype(jnp.float32)
-        tf = t.astype(jnp.float32) if hasattr(t, "astype") else float(t)
-        pmf = jnp.where(n - tf > 0, pmf * ratio * (n - tf) / (tf + 1.0), 0.0)
+    def step(t, carry):
+        cdf, pmf, m = carry
+        tf = t.astype(jnp.float32)
+        m = m + jnp.where(u > cdf, 1.0, 0.0)
+        pmf = jnp.where(n - tf > 0, pmf * ratio * (n - tf) / (tf + 1.0),
+                        0.0)
         return cdf + pmf, pmf, m
 
-    if early_exit:
-        def cond(carry):
-            t, cdf, _, _ = carry
-            return (t < depth) & (jnp.max(u - cdf) > 0.0)
-
-        def body(carry):
-            t, cdf, pmf, m = carry
-            cdf, pmf, m = step(t, cdf, pmf, m)
-            return t + 1, cdf, pmf, m
-
-        _, _, _, m = jax.lax.while_loop(
-            cond, body, (0, pmf0, pmf0, jnp.zeros_like(u)))
-    else:
-        cdf, pmf, m = pmf0, pmf0, jnp.zeros_like(u)
-        for t in range(depth):
-            cdf, pmf, m = step(t, cdf, pmf, m)
-    return jnp.minimum(m, n)
+    _, _, m = jax.lax.fori_loop(0, depth, step,
+                                (pmf0, pmf0, jnp.zeros_like(u)))
+    return jnp.where(p >= 1.0, n, jnp.minimum(m, n))
 
 
-def _binom_btrs(rng, n, p, mode=True):
-    """Hormann BTRS transformed rejection, accept-first rounds; requires
-    n*p >= 10, p <= 0.5 (guaranteed by the caller's select).
-
-    ``mode`` selects the accept-test form and loop shape (a static):
-      True / False — lgamma form ``h - lgamma(k+1) - lgamma(n-k+1) +
-        (k-m) log(p/q)`` with early-exit / straight-line rounds.
-      "btrd" / "btrd_sl" — Hormann 1993's BTRD regrouping of the SAME
-        quantity: ``hb + (n+1) log(nm/nk) + (k+0.5) log(nk r / (k+1))
-        - t(k) - t(n-k)`` with t the Stirling tail. Identical in exact
-        arithmetic (checked to 1e-11 in tests) but both logs take
-        near-unity ratio arguments, so the n-amplified terms carry small
-        ABSOLUTE error where the accept decision is marginal — and each
-        round costs two ratio logs + rational tails instead of two full
-        Stirling lgammas (which each pay a polynomial log, a native log
-        and three divides).
-      "btrd_nat" / "btrd_nat_sl" — BTRD with NATIVE ratio logs. The
-        regrouping's conditioning makes even the VPU's ~7e-5-relative
-        log admissible here: a marginal accept decision has the
-        amplified terms at |term| <~ d/q ~ 200 (d ~ 3 sigma), so the
-        absolute RHS error stays <~ 0.02 against an O(1) decision
-        margin — 40x smaller than the lgamma form's measured-biased
-        native-log error. PRODUCTION DEFAULT since the 2026-08-19
-        on-chip GOF battery (scripts/device_prng.py) passed it and the
-        interleaved A/B (scripts/abench.py) measured +9.9% aggregate
-        throughput over the precise-log early-exit form."""
+def _btrs_setup(n, p):
+    """Per-element constants of Hormann's BTRS for n*p >= 10, p <= 0.5,
+    with the BTRD form of the accept test (Hormann 1993)."""
     q = 1.0 - p
-    btrd = mode in ("btrd", "btrd_sl", "btrd_nat", "btrd_nat_sl",
-                    "btrd_nat_h4")
-    rlog = (jnp.log if mode in ("btrd_nat", "btrd_nat_sl", "btrd_nat_h4")
-            else _log_f32)
-    early_exit = mode in (True, "btrd", "btrd_nat", "btrd_nat_h4")
-    # hybrid: unroll the first rounds straight-line (a large tile almost
-    # never finishes in < 4 rounds, so the while_loop's per-round
-    # full-tile min-reduction + scalar branch is pure overhead there),
-    # then early-exit rounds for the stragglers
-    unroll = 4 if mode == "btrd_nat_h4" else 0
     spq = jnp.sqrt(n * p * q)
     b = 1.15 + 2.53 * spq
     a = -0.0873 + 0.0248 * b + 0.01 * p
@@ -232,101 +129,82 @@ def _binom_btrs(rng, n, p, mode=True):
     alpha = (2.83 + 5.1 / b) * spq
     r = jnp.maximum(p / q, _TINY)
     m = jnp.floor((n + 1.0) * p)
-    if btrd:
-        nm = n - m + 1.0
-        hb = ((m + 0.5) * _log_f32(jnp.maximum((m + 1.0) / (r * nm), _TINY))
-              + _stirling_tail(m) + _stirling_tail(n - m))
-    else:
-        lpq = _log_f32(r)
-        h = _gammaln(m + 1.0) + _gammaln(n - m + 1.0)
+    nm = n - m + 1.0
+    hb = ((m + 0.5) * jnp.log(jnp.maximum((m + 1.0) / (r * nm), _TINY))
+          + _stirling_tail(m) + _stirling_tail(n - m))
+    return a, b, c, vr, alpha, r, m, nm, hb
 
-    def round_step(t, k_acc, done):
-        # `done` carried as f32 0/1: Mosaic miscompiles i1 vectors carried
-        # through scf loops (vpad layout mismatch)
-        u = rng.uniform(n.shape, t) - 0.5
-        v = rng.uniform(n.shape, t)
-        us = 0.5 - jnp.abs(u)
-        k = jnp.floor((2.0 * a / us + b) * u + c)
-        in_range = (k >= 0) & (k <= n)
-        fast = (us >= 0.07) & (v <= vr)
-        # vv is an unamplified O(1)-absolute comparison operand: native log
-        vv = jnp.log(jnp.maximum(v * alpha / (a / (us * us) + b), _TINY))
-        if btrd:
-            # out-of-range k makes the ratio args garbage (finite); the
-            # in_range gate discards those decisions, as the lgamma form
-            # does with its negative-argument lgammas
-            nk = n - k + 1.0
-            slow = vv <= (hb + (n + 1.0)
-                          * rlog(jnp.maximum(nm / nk, _TINY))
-                          + (k + 0.5)
-                          * rlog(jnp.maximum(nk * r / (k + 1.0), _TINY))
-                          - _stirling_tail(k) - _stirling_tail(n - k))
-        else:
-            slow = vv <= (h - _gammaln(k + 1.0) - _gammaln(n - k + 1.0)
-                          + (k - m) * lpq)
-        ok = jnp.where(in_range & (fast | slow), 1.0, 0.0)
-        upd = (1.0 - done) * ok
+
+def _btrs_round(u, v, n, consts):
+    """One BTRS proposal from uniforms (u, v): returns (k, accepted).
+
+    The accept test is the BTRD regrouping ``hb + (n+1) log(nm/nk) +
+    (k+0.5) log(nk r / (k+1)) - t(k) - t(n-k)`` of the lgamma form — the
+    same quantity, but both logs take near-unity ratios, so the
+    n-amplified terms carry small absolute error. Out-of-range k makes
+    the ratios garbage (finite); the in-range gate discards them."""
+    a, b, c, vr, alpha, r, _, nm, hb = consts
+    u = u - 0.5
+    us = 0.5 - jnp.abs(u)
+    k = jnp.floor((2.0 * a / us + b) * u + c)
+    in_range = (k >= 0) & (k <= n)
+    fast = (us >= 0.07) & (v <= vr)
+    vv = jnp.log(jnp.maximum(v * alpha / (a / (us * us) + b), _TINY))
+    nk = n - k + 1.0
+    slow = vv <= (hb + (n + 1.0) * jnp.log(jnp.maximum(nm / nk, _TINY))
+                  + (k + 0.5) * jnp.log(jnp.maximum(nk * r / (k + 1.0),
+                                                    _TINY))
+                  - _stirling_tail(k) - _stirling_tail(n - k))
+    return k, in_range & (fast | slow)
+
+
+def _binom_btrs(rng, elem, n, p, skip, stage=0):
+    """BTRS accept-first rounds until every element not ``skip``-ped has
+    accepted (at most _BTRS_ROUNDS; the mode is the fallback). ``stage``
+    keys the rounds' counters, so each chain stage draws its own
+    stream."""
+    consts = _btrs_setup(n, p)
+
+    def cond(carry):
+        t, _, done = carry
+        return (t < _BTRS_ROUNDS) & (jnp.min(done) < 0.5)
+
+    def body(carry):
+        t, k_acc, done = carry
+        ctr = stage * 16 + t
+        k, ok = _btrs_round(rng.uniform(elem, ctr), rng.uniform(elem, ctr),
+                            n, consts)
+        upd = (1.0 - done) * jnp.where(ok, 1.0, 0.0)
         k_acc = k_acc * (1.0 - upd) + k * upd
-        return k_acc, jnp.maximum(done, ok)
+        return t + 1, k_acc, jnp.maximum(done, upd)
 
-    if early_exit:
-        k_acc, done = m, jnp.zeros(n.shape, jnp.float32)
-        for t in range(unroll):
-            k_acc, done = round_step(t, k_acc, done)
-
-        def cond(carry):
-            t, _, done = carry
-            return (t < _BTRS_ROUNDS) & (jnp.min(done) < 0.5)
-
-        def body(carry):
-            t, k_acc, done = carry
-            k_acc, done = round_step(t, k_acc, done)
-            return t + 1, k_acc, done
-
-        _, k_acc, _ = jax.lax.while_loop(
-            cond, body, (unroll, k_acc, done))
-        return k_acc
-    k_acc, done = m, jnp.zeros(n.shape, jnp.float32)
-    for t in range(_BTRS_ROUNDS):
-        k_acc, done = round_step(t, k_acc, done)
+    done0 = jnp.where(skip, 1.0, 0.0)
+    _, k_acc, _ = jax.lax.while_loop(cond, body,
+                                     (jnp.int32(0), consts[6], done0))
     return k_acc
 
 
-def _binom_full(rng, n, p, ee_inv=True, ee_btrs=True, skip_inv=False,
-                skip_btrs=False):
-    """General exact binomial: symmetry fold, inversion / BTRS select.
-
-    ``skip_inv`` / ``skip_btrs`` ablate one arm for the critical-path
-    attribution harness (scripts/ablate runs; NOT statistically exact —
-    the skipped arm is replaced by its deterministic mode)."""
+def _binom_full(rng, elem, n, p, stage=0):
+    """General exact binomial: symmetry fold, then inversion for
+    n*p <= 10 and BTRS above."""
     p = jnp.clip(p, 0.0, 1.0)
     flip = p > 0.5
     p_eff = jnp.where(flip, 1.0 - p, p)
     small = n * p_eff <= 10.0
-    if skip_inv:
-        m_inv = jnp.floor(n * p_eff)            # mode stand-in, 2 ops
-    else:
-        u = rng.uniform(n.shape)
-        m_inv = _binom_inversion(u, n, jnp.where(small, p_eff, 0.0),
-                                 _INV_FULL, ee_inv)
-    if skip_btrs:
-        m_btrs = jnp.floor((n + 1.0) * p_eff)
-    else:
-        n_b = jnp.where(small, 100.0, n)
-        p_b = jnp.where(small, 0.3, p_eff)
-        m_btrs = _binom_btrs(rng, n_b, p_b, ee_btrs)
+    m_inv = _binom_inversion(rng.uniform(elem, stage), n,
+                             jnp.where(small, p_eff, 0.0), _INV_FULL)
+    m_btrs = _binom_btrs(rng, elem, jnp.where(small, 100.0, n),
+                         jnp.where(small, 0.3, p_eff), small, stage)
     m = jnp.where(small, m_inv, m_btrs)
     m = jnp.where(flip, n - m, m)
     m = jnp.where((p <= 0.0) | (n <= 0.0), 0.0, m)
     m = jnp.where(p >= 1.0, n, m)
-    return jnp.clip(m, 0.0, n)
+    return jnp.clip(m, 0.0, jnp.maximum(n, 0.0))
 
 
 def _normal_icdf(p):
     """Acklam's rational approximation of the standard normal inverse CDF
-    (branch-free three-region select; |rel err| < 1.2e-9, far below f32
-    resolution). Uses only log/sqrt/polynomials — no trig, which Mosaic may
-    not lower."""
+    (branch-free three-region select; |rel err| < 1.2e-9)."""
     a = (-3.969683028665376e+01, 2.209460984245205e+02,
          -2.759285104469687e+02, 1.383577518672690e+02,
          -3.066479806614716e+01, 2.506628277459239e+00)
@@ -342,7 +220,7 @@ def _normal_icdf(p):
     p = jnp.clip(p, 1.0 / 33554432.0, 1.0 - 1.0 / 33554432.0)
 
     def tail(q):   # q = min(p, 1-p), evaluates the lower-tail branch
-        s = jnp.sqrt(-2.0 * _log_f32(q))
+        s = jnp.sqrt(-2.0 * jnp.log(q))
         num = ((((cc[0] * s + cc[1]) * s + cc[2]) * s + cc[3]) * s
                + cc[4]) * s + cc[5]
         den = (((dd[0] * s + dd[1]) * s + dd[2]) * s + dd[3]) * s + 1.0
@@ -353,1019 +231,236 @@ def _normal_icdf(p):
     num = ((((a[0] * r + a[1]) * r + a[2]) * r + a[3]) * r + a[4]) * r + a[5]
     den = ((((b[0] * r + b[1]) * r + b[2]) * r + b[3]) * r + b[4]) * r + 1.0
     central = num * q / den
-    lo = tail(p)
-    hi = -tail(1.0 - p)
-    out = jnp.where(p < plow, lo, jnp.where(p > 1.0 - plow, hi, central))
-    return out
+    return jnp.where(p < plow, tail(p),
+                     jnp.where(p > 1.0 - plow, -tail(1.0 - p), central))
 
 
-_MT_ROUNDS = 8
-
-
-def _gamma_mt(rng, a, early_exit: bool = False):
-    """Gamma(a, 1) via Marsaglia-Tsang squeeze rejection rounds; shapes
-    a < 1 boosted through Gamma(a+1) * U^(1/a). Matches ops.random.gamma
-    (same algorithm) with the kernel RNG.
-
-    ``early_exit`` runs the rounds as a while_loop leaving when every
-    element has accepted (~97% acceptance -> ~2-4 rounds over the state
-    tile) instead of _MT_ROUNDS straight-line; identical in distribution
-    (post-acceptance rounds never update v_acc; the RNG tap order
-    differs, as with every early-exit sampler in this kernel)."""
-    boost = jnp.where(a < 1.0, 1.0, 0.0)
-    a_eff = a + boost
-    d = a_eff - 1.0 / 3.0
+def _gamma_mt(rng, elem, a):
+    """Gamma(a, 1) by Marsaglia-Tsang squeeze rejection, rounds until all
+    elements accept (at most _MT_ROUNDS; the mode v=1 is the fallback);
+    shapes a < 1 boosted through Gamma(a+1) * U^(1/a)."""
+    boost = a < 1.0
+    d = jnp.where(boost, a + 1.0, a) - 1.0 / 3.0
     c = 1.0 / jnp.sqrt(9.0 * d)
 
-    def round_step(t, v_acc, done):
-        x = _normal_icdf(rng.uniform(a.shape, t))
-        u = rng.uniform(a.shape, t)
+    def cond(carry):
+        t, _, done = carry
+        return (t < _MT_ROUNDS) & (jnp.min(done) < 0.5)
+
+    def body(carry):
+        t, v_acc, done = carry
+        x = _normal_icdf(rng.uniform(elem, t))
+        u = rng.uniform(elem, t)
         v = (1.0 + c * x) ** 3
-        ok_b = (v > 0.0) & (_log_f32(u) < 0.5 * x * x + d - d * v
-                            + d * _log_f32(jnp.maximum(v, _TINY)))
-        ok = jnp.where(ok_b, 1.0, 0.0)
-        upd = (1.0 - done) * ok
+        ok = (v > 0.0) & (jnp.log(u) < 0.5 * x * x + d - d * v
+                          + d * jnp.log(jnp.maximum(v, _TINY)))
+        upd = (1.0 - done) * jnp.where(ok, 1.0, 0.0)
         v_acc = v_acc * (1.0 - upd) + v * upd
-        return v_acc, jnp.maximum(done, ok)
+        return t + 1, v_acc, jnp.maximum(done, upd)
 
-    # fallback after all rounds (prob < 1e-10 per draw): mode v=1
-    v_acc, done = jnp.ones_like(a), jnp.zeros_like(a)
-    if early_exit:
-        def cond(carry):
-            t, _, done = carry
-            return (t < _MT_ROUNDS) & (jnp.min(done) < 0.5)
-
-        def body(carry):
-            t, v_acc, done = carry
-            v_acc, done = round_step(t, v_acc, done)
-            return t + 1, v_acc, done
-
-        _, v_acc, done = jax.lax.while_loop(cond, body, (0, v_acc, done))
-    else:
-        for t in range(_MT_ROUNDS):
-            v_acc, done = round_step(t, v_acc, done)
+    _, v_acc, _ = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), jnp.ones_like(a), jnp.zeros_like(a)))
     sample = d * v_acc
-    ub = rng.uniform(a.shape)
-    boosted = sample * _exp_f32(_log_f32(ub) / jnp.maximum(a, _TINY))
-    out = sample * (1.0 - boost) + boosted * boost
-    return jnp.maximum(out, 1e-30)
+    boosted = sample * jnp.exp(jnp.log(rng.uniform(elem))
+                               / jnp.maximum(a, _TINY))
+    return jnp.maximum(jnp.where(boost, boosted, sample), _TINY)
 
 
-def _conjugate_in_kernel(rng, ns, ts, alpha: float, ga: float, gb: float,
-                         kfirst: bool = False, early_exit: bool = False):
-    """Dirichlet/Gamma conjugate posterior draw on the (G, K) state tile
-    (reference gibbs.py:210-211), fully inside VMEM.
-
-    The weight- and rate-posterior Gamma draws are independent, so they
-    stack into ONE Marsaglia-Tsang call on a (2, ...) tile.
-
-    ``kfirst`` moves K off the 128-lane axis before the Gamma draws (the
-    natural (.., G, K) orientation leaves K = 15 of 128 lanes live). The
-    round-5 on-chip ablation measured the conjugate at 21-55 us/sweep —
-    the largest single stage of the sweep's critical path — and this
-    transposed variant was the first attack; interleaved A/B showed the
-    two moveaxis relayouts COST MORE than the dead-lane waste they
-    recover on shallow buckets (b0 64 -> 78 us/sweep) and roughly wash
-    on deep ones (b1 160 -> 156), so the production default is False.
-    Kept as a measured option (scripts/abench.py 'conj_gk'/'prod5');
-    draws are identical in distribution either way (same RNG tap order,
-    element mapping is a bijection)."""
-    if kfirst:
-        nsT = jnp.moveaxis(ns, -1, 0)            # (K, ..., G)
-        tsT = jnp.moveaxis(ts, -1, 0)
-        g2 = _gamma_mt(rng, jnp.stack([alpha + nsT, ga + nsT]), early_exit)
-        w = g2[0] / jnp.sum(g2[0], axis=0, keepdims=True)
-        r = g2[1] / (gb + tsT)
-        return jnp.moveaxis(w, 0, -1), jnp.moveaxis(r, 0, -1)
-    g2 = _gamma_mt(rng, jnp.stack([alpha + ns, ga + ns]), early_exit)
-    w = g2[0] / jnp.sum(g2[0], axis=-1, keepdims=True)
-    r = g2[1] / (gb + ts)
-    return w, r
-
-
-class _Ablate:
-    """Cumulative critical-path ablation ladder (scripts/ablate runs; the
-    attribution behind docs/design.md's per-stage decomposition). Each
-    level adds one pipeline stage to the previous, so adjacent timing
-    differences attribute that stage's serial cost. NOT statistically
-    exact below "" — ablated samplers are replaced by their 2-op
-    deterministic modes so tile shapes and the rem chain stay realistic.
-
-    empty < suffix < suffix_conj < chain_single < chain_small
-          < chain_inv < "" (full production kernel)
-    """
-
-    LEVELS = ("empty", "suffix", "suffix_conj", "chain_single",
-              "chain_small", "chain_inv", "")
-
-    def __init__(self, ablate: str):
-        if ablate not in self.LEVELS:
-            raise ValueError(f"unknown ablate level {ablate!r}; "
-                             f"one of {self.LEVELS}")
-        i = self.LEVELS.index(ablate)
-        self.empty = i == 0
-        self.fake_stats = i in (1, 2)        # suffix sums only, no chain
-        self.conj = i >= 2
-        self.head_det = 2 < i < 5            # head tier -> 2-op mode
-        self.small_det = i == 3              # small tier -> 2-op mode
-        self.skip_btrs = i == 5              # head inversion real, no BTRS
-
-
-def _det_binom(n, p):
-    """2-op deterministic stand-in for an ablated tier sampler."""
-    return jnp.floor(n * jnp.clip(p, 0.0, 1.0))
-
-
-def _suff_stats(rng, v, c, w_gk, r_gk, z_scr, K: int, head_rows: int,
-                small_rows: int,
-                early_exit: Tuple[bool, bool, bool] = (True, True, True),
-                abl: Optional[_Ablate] = None):
-    """Sufficient statistics (N_k, T_k) of one collapsed sweep for a group
-    of G lanes laid out as (SL, G, 128); tier slices along the leading
-    (untiled) axis keep every VPU instruction on full (G, 128) tiles.
-
-    z_scr: (K, SL, G, 128) VMEM scratch holding suffix probabilities.
-    Returns (ns, ts), each (G, K).
-    """
-    SL = v.shape[0]
-    G = v.shape[1]
-    _suffix_sums(v, w_gk, r_gk, z_scr, K)
-
-    # singleton tier (counts in {0,1}): inverse-CDF against the suffix
-    # sums directly — ONE uniform per element for the whole sweep and one
-    # compare per component (category k iff S_k > t >= S_{k+1}, exact),
-    # instead of a conditional-probability divide + uniform + Bernoulli
-    # per component
-    if SL > small_rows:
-        u1 = rng.uniform((SL - small_rows, G, _LANES))
-        thresh = u1 * z_scr[0][small_rows:]
-        c_single = c[small_rows:]
-        v_single = v[small_rows:]
-        prev_ind = jnp.ones_like(thresh)     # S_0 > t always
-    # (a trial-threshold variant for the small tier — 8 categoricals per
-    # element against the suffix sums — measured SLOWER than the 9-step
-    # inversion: the (8, rows, G, 128) trial tensors octuple the tile
-    # volume per stage)
-    rem = c[:small_rows]
-    v_hs = v[:small_rows]
-    ns_list = []
-    ts_list = []
-    for k in range(K - 1):
-        ns_k = jnp.zeros((G,), jnp.float32)
-        ts_k = jnp.zeros((G,), jnp.float32)
-        if small_rows > 0:
-            suffix = z_scr[k][:small_rows]
-            nxt = z_scr[k + 1][:small_rows]
-            pcond = jnp.clip((suffix - nxt) / jnp.maximum(suffix, _TINY),
-                             0.0, 1.0)
-            draw = _chain_tier_draw(rng, rem, pcond, head_rows,
-                                    small_rows, G, early_exit, abl)
-            ns_k = ns_k + jnp.sum(draw, axis=(0, 2))     # (G,)
-            ts_k = ts_k + jnp.sum(v_hs * draw, axis=(0, 2))
-            rem = rem - draw
-        if SL > small_rows:
-            ind = jnp.where(z_scr[k + 1][small_rows:] > thresh, 1.0, 0.0)
-            sdraw = c_single * (prev_ind - ind)
-            prev_ind = ind
-            ns_k = ns_k + jnp.sum(sdraw, axis=(0, 2))
-            ts_k = ts_k + jnp.sum(v_single * sdraw, axis=(0, 2))
-        ns_list.append(ns_k)
-        ts_list.append(ts_k)
-    ns_K = jnp.zeros((G,), jnp.float32)
-    ts_K = jnp.zeros((G,), jnp.float32)
-    if small_rows > 0:
-        ns_K = ns_K + jnp.sum(rem, axis=(0, 2))
-        ts_K = ts_K + jnp.sum(v_hs * rem, axis=(0, 2))
-    if SL > small_rows:
-        sdraw = c_single * prev_ind
-        ns_K = ns_K + jnp.sum(sdraw, axis=(0, 2))
-        ts_K = ts_K + jnp.sum(v_single * sdraw, axis=(0, 2))
-    ns_list.append(ns_K)
-    ts_list.append(ts_K)
-    return jnp.stack(ns_list, axis=-1), jnp.stack(ts_list, axis=-1)
-
-
-def _chain_tier_draw(rng, rem, pcond, head_rows: int, small_rows: int,
-                     G: int, early_exit, abl: Optional[_Ablate]):
-    """One stage's tier-dispatched binomial draw over the head + small
-    rows (shared by the uniform and packed stats bodies); ``abl``
-    substitutes ablated tiers with their 2-op deterministic modes."""
-    parts = []
-    if head_rows > 0:
-        if abl is not None and abl.head_det:
-            parts.append(_det_binom(rem[:head_rows], pcond[:head_rows]))
-        else:
-            parts.append(_binom_full(
-                rng, rem[:head_rows], pcond[:head_rows], early_exit[0],
-                early_exit[1],
-                skip_btrs=abl is not None and abl.skip_btrs))
-    if small_rows > head_rows:
-        if abl is not None and abl.small_det:
-            parts.append(_det_binom(rem[head_rows:], pcond[head_rows:]))
-        else:
-            u = rng.uniform((small_rows - head_rows, G, _LANES))
-            parts.append(_binom_inversion(u, rem[head_rows:],
-                                          pcond[head_rows:], _INV_SMALL,
-                                          early_exit[2], nmax_bits=5))
-    return parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=0)
-
-
-def _suffix_sums(v, w_gk, r_gk, z_scr, K: int):
-    """Fill z_scr[k] with S_k = sum_{j>=k} w_j r_j exp(-r_j v) (suffix
-    responsibilities; the normalization cancels in every conditional)."""
-    zsum = jnp.zeros_like(v)
-    for k in range(K - 1, -1, -1):
-        w_k = w_gk[:, k][None, :, None]
-        r_k = r_gk[:, k][None, :, None]
-        # magnitudes are bounded: r v >= 0, w r <= ~50; exp(-r v) <= 1,
-        # products stay in f32 range
-        z_k = w_k * r_k * jnp.exp(-r_k * v)
-        zsum = zsum + z_k
-        z_scr[k] = zsum
-
-
-def _segment_masks(pack: int, seg_masks=None):
-    """Per-segment column-ownership masks of a packed physical lane:
-    the caller-provided per-lane (G, 128) masks (mixed-width buckets) or
-    the static uniform 128 // pack split. Broadcast-compatible with both
-    (G, K)-state blends and (SL, G, 128) tiles."""
-    if seg_masks is not None:
-        return seg_masks                                 # each (G, 128)
-    W = _LANES // pack
-    col = jax.lax.broadcasted_iota(jnp.int32, (1, _LANES), 1)
-    return [((col >= s * W) & (col < (s + 1) * W)).astype(jnp.float32)
-            for s in range(pack)]                        # each (1, 128)
-
-
-def _suffix_sums_packed(v, w_pgk, r_pgk, z_scr, K: int, masks):
-    """_suffix_sums for packed lanes: per-column (w, r) come from the
-    owning segment's chain via a mask blend — pack * K fused
-    multiply-adds on (G, 128) tiles per pass."""
-    def col_state(st, k):
-        out = masks[0] * st[0][:, k][:, None]
-        for s in range(1, len(masks)):
-            out = out + masks[s] * st[s][:, k][:, None]
-        return out
-
-    zsum = jnp.zeros_like(v)
-    for k in range(K - 1, -1, -1):
-        w_col = col_state(w_pgk, k)
-        r_col = col_state(r_pgk, k)
-        zsum = zsum + (w_col * r_col)[None] * jnp.exp(-r_col[None] * v)
-        z_scr[k] = zsum
-
-
-def _suff_stats_packed(rng, v, c, w_pgk, r_pgk, z_scr, K: int,
-                       head_rows: int, small_rows: int, pack: int,
-                       early_exit: Tuple[bool, bool, bool] = (True, True,
-                                                              True),
-                       seg_masks=None, abl: Optional[_Ablate] = None):
-    """Segmented sufficient statistics: every physical lane of the
-    (SL, G, 128) tile carries ``pack`` independent logical lanes side by
-    side in 128//pack-column segments, each with its own (w, r) chain.
-
-    ``w_pgk``/``r_pgk``: (pack, G, K). Per-column responsibilities pick the
-    owning segment's state via a static mask blend — pack * K fused
-    multiply-adds on (G, 128) tiles per suffix pass, negligible next to the
-    binomial chain the whole row then shares. The (N_k, T_k) reductions
-    split per segment the same way. Returns (ns, ts), each (pack, G, K).
-
-    ``seg_masks`` (mixed-width buckets, any pack >= 2): a list of ``pack``
-    (G, 128) f32 ownership masks replacing the uniform 128//pack split —
-    each physical lane draws its segment boundaries where its own members
-    need them (batch._mixed_kpack bin-packs members of different widths
-    into each lane), so a V=700 residue shares a lane with a V=380 one
-    without either paying phantom rows, and up to ``pack`` small residues
-    tile one lane. Broadcast semantics are identical to the (1, 128)
-    static masks; empty slots own no columns and draw zero statistics.
-
-    Small residues are where the padding waste lived: a V<=16 residue in
-    the 128-column floor bucket paid a full head-tier row for 16 live
-    columns; packed 8-up, that row's draws are amortized across 8 residues.
-    """
-    SL, G = v.shape[0], v.shape[1]
-    masks = _segment_masks(pack, seg_masks)
-    _suffix_sums_packed(v, w_pgk, r_pgk, z_scr, K, masks)
-
-    def seg_sums(draw3, vals3):
-        # (rows, G, 128) draws -> per-segment (pack, G) count / time sums.
-        # Row-reduce ONCE, then mask per segment: O(rows + pack) tile
-        # passes instead of O(rows * pack) — the difference between pack=2
-        # and the k-way mixed layouts (pack up to 8) being free
-        rn = jnp.sum(draw3, axis=0)                       # (G, 128)
-        rt = jnp.sum(vals3 * draw3, axis=0)               # (G, 128)
-        ns = jnp.stack([jnp.sum(rn * m, axis=-1) for m in masks])
-        ts = jnp.stack([jnp.sum(rt * m, axis=-1) for m in masks])
-        return ns, ts
-
-    if SL > small_rows:
-        u1 = rng.uniform((SL - small_rows, G, _LANES))
-        thresh = u1 * z_scr[0][small_rows:]
-        c_single = c[small_rows:]
-        v_single = v[small_rows:]
-        prev_ind = jnp.ones_like(thresh)
-    rem = c[:small_rows]
-    v_hs = v[:small_rows]
-    ns_list, ts_list = [], []
-    for k in range(K - 1):
-        ns_k = jnp.zeros((pack, G), jnp.float32)
-        ts_k = jnp.zeros((pack, G), jnp.float32)
-        if small_rows > 0:
-            suffix = z_scr[k][:small_rows]
-            nxt = z_scr[k + 1][:small_rows]
-            pcond = jnp.clip((suffix - nxt) / jnp.maximum(suffix, _TINY),
-                             0.0, 1.0)
-            draw = _chain_tier_draw(rng, rem, pcond, head_rows,
-                                    small_rows, G, early_exit, abl)
-            dns, dts = seg_sums(draw, v_hs)
-            ns_k = ns_k + dns
-            ts_k = ts_k + dts
-            rem = rem - draw
-        if SL > small_rows:
-            ind = jnp.where(z_scr[k + 1][small_rows:] > thresh, 1.0, 0.0)
-            sdraw = c_single * (prev_ind - ind)
-            prev_ind = ind
-            dns, dts = seg_sums(sdraw, v_single)
-            ns_k = ns_k + dns
-            ts_k = ts_k + dts
-        ns_list.append(ns_k)
-        ts_list.append(ts_k)
-    ns_K = jnp.zeros((pack, G), jnp.float32)
-    ts_K = jnp.zeros((pack, G), jnp.float32)
-    if small_rows > 0:
-        dns, dts = seg_sums(rem, v_hs)
-        ns_K = ns_K + dns
-        ts_K = ts_K + dts
-    if SL > small_rows:
-        sdraw = c_single * prev_ind
-        dns, dts = seg_sums(sdraw, v_single)
-        ns_K = ns_K + dns
-        ts_K = ts_K + dts
-    ns_list.append(ns_K)
-    ts_list.append(ts_K)
-    return jnp.stack(ns_list, axis=-1), jnp.stack(ts_list, axis=-1)
-
-
-def _tiered_binom(rng, n, p, head_rows: int, small_rows: int, SL: int,
-                  early_exit):
-    """Tier-dispatched exact binomial draws on stacked (..., rows, G, 128)
-    node tensors; rows tiers select the sampler by multiplicity bound."""
-    parts = []
-    if head_rows > 0:
-        parts.append(_binom_full(rng, n[..., :head_rows, :, :],
-                                 p[..., :head_rows, :, :],
-                                 early_exit[0], early_exit[1]))
-    if small_rows > head_rows:
-        sl = n[..., head_rows:small_rows, :, :]
-        u = rng.uniform(sl.shape)
-        parts.append(_binom_inversion(u, sl,
-                                      p[..., head_rows:small_rows, :, :],
-                                      _INV_SMALL, early_exit[2],
-                                              nmax_bits=5))
-    if SL > small_rows:
-        sl = n[..., small_rows:, :, :]
-        u = rng.uniform(sl.shape)
-        parts.append(sl * (u < p[..., small_rows:, :, :]).astype(
-            jnp.float32))
-    return parts[0] if len(parts) == 1 else jnp.concatenate(parts, axis=-3)
-
-
-def _suff_stats_tree(rng, v, c, w_gk, r_gk, z_scr, K: int, head_rows: int,
-                     small_rows: int,
-                     early_exit=(True, True, True), pack: int = 1,
-                     seg_masks=None):
-    """Sufficient statistics via binary multinomial splitting.
-
-    The conditional-binomial chain walks K-1 sequential stages; splitting
-    the component set in half recursively needs only log2(K) sequential
-    levels, with every node of a level drawn in ONE stacked binomial call.
-    Exact: Multinomial(n, p) == recursively Binomial-split over any
-    partition. Components are padded to the next power of two with zero
-    probability (they draw exactly 0).
-
-    With ``pack > 1`` the (w, r) args are (pack, G, K) per-segment states
-    (see :func:`_suff_stats_packed`); the node splits are unchanged —
-    the suffix sums are already per-column — and only the suffix fill and
-    the final (N_k, T_k) reductions go per segment. Returns (G, K) or
-    (pack, G, K).
-    """
-    SL, G = v.shape[0], v.shape[1]
-    if pack > 1:
-        masks = _segment_masks(pack, seg_masks)
-        _suffix_sums_packed(v, w_gk, r_gk, z_scr, K, masks)
-    else:
-        _suffix_sums(v, w_gk, r_gk, z_scr, K)
-
-    Kp = 1
-    while Kp < K:
-        Kp *= 2
-    zero = jnp.zeros_like(v)
-
-    def S(k):
-        return z_scr[k] if k < K else zero
-
-    # nodes: list of (a, b, n_tensor) in component order
-    nodes = [(0, Kp, c)]
-    while len(nodes) < Kp:
-        pairs = [(a, (a + b) // 2, b, n) for (a, b, n) in nodes]
-        num = jnp.stack([S(a) - S(m) for a, m, b, n in pairs])
-        den = jnp.stack([S(a) - S(b) for a, m, b, n in pairs])
-        p = jnp.clip(num / jnp.maximum(den, _TINY), 0.0, 1.0)
-        n_st = jnp.stack([n for a, m, b, n in pairs])
-        draws = _tiered_binom(rng, n_st, p, head_rows, small_rows, SL,
-                              early_exit)
-        nxt = []
-        for i, (a, m, b, n) in enumerate(pairs):
-            left = jnp.minimum(draws[i], n)
-            nxt.append((a, m, left))
-            nxt.append((m, b, n - left))
-        nodes = nxt
-
-    if pack > 1:
-        # row-reduce once per node, then mask per segment (cf. seg_sums)
-        rns = [jnp.sum(n, axis=0) for _, _, n in nodes[:K]]      # (G, 128)
-        rts = [jnp.sum(v * n, axis=0) for _, _, n in nodes[:K]]
-        ns = jnp.stack(
-            [jnp.stack([jnp.sum(rn * m, axis=-1) for m in masks])
-             for rn in rns], axis=-1)                         # (pack, G, K)
-        ts = jnp.stack(
-            [jnp.stack([jnp.sum(rt * m, axis=-1) for m in masks])
-             for rt in rts], axis=-1)
-        return ns, ts
-    ns = jnp.stack([jnp.sum(n, axis=(0, 2)) for _, _, n in nodes[:K]],
-                   axis=-1)                                  # (G, K)
-    ts = jnp.stack([jnp.sum(v * n, axis=(0, 2)) for _, _, n in nodes[:K]],
-                   axis=-1)
-    return ns, ts
-
-
-def _sweep_stats_kernel(K: int, head_rows: int, small_rows: int,
-                        use_hash_rng: bool, tree: bool,
-                        seed_ref, w_ref, r_ref, v_ref, c_ref,
-                        ns_ref, ts_ref, z_scr):
-    """Grid: (B // G,). Blocks: v/c (1, SL, G, 128); w/r (1, G, K);
-    out ns/ts (1, G, K)."""
-    group = pl.program_id(0)
-    if not use_hash_rng:
-        pltpu.prng_seed(seed_ref[0], group)
-    rng = _Rng(use_hash_rng, seed_ref[0], group)
-    stats = _suff_stats_tree if tree else _suff_stats
-    ns, ts = stats(rng, v_ref[0], c_ref[0], w_ref[0], r_ref[0],
-                   z_scr, K, head_rows, small_rows)
-    ns_ref[0] = ns
-    ts_ref[0] = ts
-
-
-def pad_tiers_to_rows(tiers: Tuple[int, int], V: int) -> Tuple[int, int]:
-    """Round tier boundaries up to whole 128-lane rows (larger tiers are
-    always safe: every sampler is exact on its tier's count range)."""
-    up = lambda x: -(-x // _LANES)  # noqa: E731
-    head = min(up(tiers[0]), V // _LANES)
-    small = min(max(up(tiers[1]), head), V // _LANES)
+def chunk_tiers(tiers: Tuple[int, int], n_chunks: int,
+                chunk: int = _CHUNK) -> Tuple[int, int]:
+    """Column tiers (head_end, single_start) -> chunk tiers: chunks
+    [0, head) run the general sampler, [head, small) the small-count
+    inversion, [small, n_chunks) the singleton categorical. Rounding a
+    boundary up is always safe: each sampler is exact on every smaller
+    count."""
+    up = lambda x: -(-x // chunk)  # noqa: E731
+    head = min(up(tiers[0]), n_chunks)
+    small = min(max(up(tiers[1]), head), n_chunks)
     return head, small
 
 
-def packed_row_tiers(tiers: Tuple[int, int], seg_width: int,
-                     SL: int) -> Tuple[int, int]:
-    """Row tiers for a packed bucket: logical column j of a segment lives
-    in physical row j // seg_width, and columns are multiplicity-sorted,
-    so a logical tier boundary at column t puts rows [0, ceil(t / W))
-    in that tier. Each physical row runs the most general sampler any of
-    its packed columns needs — exact for every smaller count, so mixing
-    multiplicities across segments is safe."""
-    up = lambda x: -(-x // seg_width)  # noqa: E731
-    head = min(up(tiers[0]), SL)
-    small = min(max(up(tiers[1]), head), SL)
-    return head, small
+def _segment_kernel(K: int, Kp: int, chunk: int, tiers: Tuple[int, int],
+                    n_chunks: int, g: int, n_blocks: int, alpha: float,
+                    ga: float, gb: float,
+                    seed_ref, w0_ref, r0_ref, v_ref, c_ref,
+                    w_out_ref, r_out_ref, w_fin_ref, r_fin_ref):
+    """Run ``n_blocks * g`` sweeps for ONE lane (grid: (B,)).
 
-
-
-def transcendentals_per_sweep(B: int, V: int, pack: int,
-                              tiers: Tuple[int, int], K: int,
-                              phys: Optional[Tuple[int, int, int]] = None
-                              ) -> int:
-    """Static count of transcendental ops (exp/log/sqrt) one sweep of the
-    fused kernel executes for a bucket, INCLUDING padded lanes/columns —
-    the roofline numerator (BENCH extras ``vpu_transcendental_util``).
-
-    Per physical (G, 128) row tile and component step: the suffix pass
-    costs K exps per element; a head row pays the inversion table's
-    exp+log plus ~6 BTRS rounds (the early-exit while_loop runs to the
-    max over the whole tile; acceptance ~0.85 over 10^4-10^5 elements
-    gives ~5-8 rounds) of ~5 log/sqrt each plus the 2-gammaln setup;
-    a small row pays exp+log; singleton rows pay none. The conjugate
-    update adds ~3 transcendentals per Marsaglia-Tsang round over the
-    (pack, G, K) state tile.
-
-    ``phys``: explicit (SL, head_rows, small_rows[, Bph]) physical-row
-    layout for mixed-width buckets (batch._mixed_row_tiers), where
-    V/tiers are logical and cannot reproduce the packing; the optional
-    4th element gives the true physical lane count (k-way layouts fill
-    lanes variably, so ceil(B / pack) undercounts them).
-    """
-    if phys is not None:
-        SL, head, small = phys[:3]
-        Bph = phys[3] if len(phys) > 3 else -(-B // pack)
-    elif pack > 1:
-        W = _LANES // pack
-        SL = V // W
-        head, small = packed_row_tiers(tiers, W, SL)
-        Bph = -(-B // pack)
-    else:
-        SL = max(V // _LANES, 1)
-        head, small = pad_tiers_to_rows(tiers, max(V, _LANES))
-        Bph = B
-    # padded physical lane count (mirrors the G-choice of the layouts)
-    cap = _GROUP
-    NG = -(-Bph // cap)
-    G = max(8, (-(-Bph // NG) + 7) // 8 * 8)
-    lanes = NG * G
-    elems_row = _LANES
-    suffix = K * SL * elems_row                       # exps per lane
-    chain = 0
-    for _ in range(K - 1):
-        chain += head * elems_row * (2 + 6 * 5 + 5)     # head rows
-        chain += max(small - head, 0) * elems_row * 2   # small rows
-    conj = 2 * pack * K * (_MT_ROUNDS * 3 + 2)        # per physical lane
-    return int(lanes * (suffix + chain + conj))
-
-
-def _group_layout(state: MixtureState, values, counts, K: int,
-                  rows_per_lane: int, group_cap: Optional[int] = None):
-    """Lay the batch out as lane groups: pad B to a multiple of G (chosen
-    to fit ~12 MB of VMEM given ``rows_per_lane`` live (SL, G, 128) rows per
-    lane, capped by ``group_cap`` (default _GROUP) and by the batch size —
-    a small B inside a big group is pure padding work) and reshape to
-    grouped (NG, ...) tensors.
-
-    Returns (G, NG, Bp, w3, r3, v4, c4).
-    """
-    B, V = values.shape
-    SL = V // _LANES
-    budget = 12 * 2 ** 20
-    g_fit = budget // max(1, rows_per_lane * SL * _LANES * 4)
-    g_fit = max(8, (g_fit // 8) * 8)   # whole sublane tiles
-    cap = int(min(group_cap or _GROUP, g_fit))
-    # minimize padded lanes: fix the grid length NG implied by the cap,
-    # then shrink G to the smallest sublane-tile multiple covering B in
-    # NG programs (B=75 runs as 2 groups of 40 = 10 sublane tiles/op,
-    # not 2 groups of 64 = 16 — padded lanes are real VPU work)
-    NG = -(-B // cap)
-    G = max(8, (-(-B // NG) + 7) // 8 * 8)
-    Bp = NG * G
-    pad = Bp - B
-    w = jnp.pad(state.weights, ((0, pad), (0, 0)), constant_values=1.0)
-    r = jnp.pad(state.rates, ((0, pad), (0, 0)), constant_values=1.0)
-    vals = jnp.pad(values, ((0, pad), (0, 0)), constant_values=1.0)
-    cnts = jnp.pad(counts, ((0, pad), (0, 0)))
-    NG = Bp // G
-    # (NG, G, SL, 128) -> (NG, SL, G, 128)
-    v4 = jnp.swapaxes(vals.reshape(NG, G, SL, _LANES), 1, 2)
-    c4 = jnp.swapaxes(cnts.reshape(NG, G, SL, _LANES), 1, 2)
-    return G, NG, Bp, w.reshape(NG, G, K), r.reshape(NG, G, K), v4, c4
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("K", "tiers", "interpret", "tree"))
-def sweep_stats(seed: jax.Array, state: MixtureState, values: jax.Array,
-                counts: jax.Array, K: int, tiers: Tuple[int, int],
-                interpret: bool = False, tree: bool = False):
-    """Batched sufficient statistics of one collapsed Gibbs sweep.
-
-    Args:
-        seed: int32 scalar (per-sweep; lanes decorrelate via program id).
-        state: (B, K) weights/rates.
-        values/counts: (B, V) with V a multiple of 128, sorted by
-            multiplicity descending, tiers aligned via pad_tiers_to_rows.
-        tree: use the binary-splitting multinomial (log2(K) stacked levels
-            instead of the K-1 conditional chain; measured neutral at K=15,
-            an option for larger K).
-    Returns:
-        (Ns, Ts): each (B, K).
-    """
-    B, V = values.shape
-    SL = V // _LANES
-    head_rows, small_rows = tiers
-    G, NG, Bp, w3, r3, v4, c4 = _group_layout(state, values, counts, K,
-                                              K + 3)
-
-    kernel = functools.partial(_sweep_stats_kernel, K, head_rows,
-                               small_rows, _use_hash_rng(interpret),
-                               bool(tree))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(NG,),
-        in_specs=[
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SL, G, _LANES), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SL, G, _LANES), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((K, SL, G, _LANES), jnp.float32)],
-    )
-    ns, ts = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((NG, G, K), jnp.float32),
-                   jax.ShapeDtypeStruct((NG, G, K), jnp.float32)],
-        # interpret mode uses the hash RNG (no pltpu PRNG primitives), so
-        # the generic interpreter suffices — unlike the TPU interpreter it
-        # composes with shard_map for CPU-based multi-chip tests
-        interpret=bool(interpret),
-    )(jnp.atleast_1d(seed).astype(jnp.int32), w3, r3, v4, c4)
-    return ns.reshape(Bp, K)[:B], ts.reshape(Bp, K)[:B]
-
-
-def _segment_kernel(K: int, head_rows: int, small_rows: int,
-                    use_hash_rng: bool, g: int, n_blocks: int,
-                    alpha: float, ga: float, gb: float, early_exit,
-                    pack: int, tree: bool, mixed: bool, ablate: str,
-                    conj_kfirst: bool, *refs):
-    """Run ``n_blocks * g`` whole Gibbs sweeps for one group of G lanes with
-    the (w, r) chain state resident in VMEM, writing the thinned state after
-    every g-th sweep.
-
-    Grid: (B // G,). Blocks: v/c (1, SL, G, 128); w0/r0 (1, G, K);
-    outputs w/r thinned (1, n_blocks, G, K) and final state (1, G, K).
-    With ``pack > 1`` the state blocks grow a leading pack axis —
-    w0/r0/fin (1, pack, G, K), thinned (1, n_blocks * pack, G, K) with
-    block ``blk`` of logical sub-lane ``s`` at index ``blk * pack + s`` —
-    and the sufficient statistics come from :func:`_suff_stats_packed`.
-
-    The PRNG is re-seeded per sweep from (base seed, group, absolute sweep
-    index), so chains are reproducible for any segmentation of the run —
-    a preempted run resumes bit-exactly (cf. batch.run_batch checkpoints).
-
-    ``mixed`` inserts a (1, G, 128) segment-ID tile input after c_ref
-    (mixed-width buckets, any pack >= 2): per column, the f32 slot index
-    in [0, pack) of the logical lane owning it (see
-    :func:`_suff_stats_packed`); ownership masks are rebuilt in-kernel by
-    equality against each slot index.
-    """
-    if mixed:
-        (seed_ref, w0_ref, r0_ref, v_ref, c_ref, m_ref,
-         w_out_ref, r_out_ref, w_fin_ref, r_fin_ref, z_scr) = refs
-    else:
-        (seed_ref, w0_ref, r0_ref, v_ref, c_ref,
-         w_out_ref, r_out_ref, w_fin_ref, r_fin_ref, z_scr) = refs
-        m_ref = None
-    group = pl.program_id(0)
+    Refs: seed (4,) = (base seed, absolute sweep offset, index of this
+    grid's first lane in the whole batch, unused); w0/r0 (Kp,);
+    v/c (n_chunks * chunk,); thinned outputs (n_blocks, Kp); final state
+    (Kp,). State vectors hold the components in REVERSED order — row
+    j = Kp-1-k is component k and rows j < Kp-K are masked padding — so
+    the suffix sums S_k = sum_{k' >= k} z_k' the chain needs are one
+    forward cumulative sum over rows."""
     base_seed = seed_ref[0]
     offset = seed_ref[1]
-    v = v_ref[0]
-    c = c_ref[0]
-    if m_ref is not None:
-        sid = m_ref[0]                               # (G, 128) f32 slot ids
-        seg_masks = [(sid == float(s)).astype(jnp.float32)
-                     for s in range(pack)]
-    else:
-        seg_masks = None
+    lane = pl.program_id(0) + seed_ref[2]
+    head_chunks, small_chunks = tiers
+    kio = jax.lax.broadcasted_iota(jnp.int32, (Kp,), 0)
+    kio2 = jax.lax.broadcasted_iota(jnp.int32, (Kp, chunk), 0)
+    live = kio >= Kp - K
+    col = jax.lax.broadcasted_iota(jnp.int32, (chunk,), 0)
 
-    abl = _Ablate(ablate)
+    def load_chunk(ci, w, r):
+        off = ci * chunk
+        v = v_ref[pl.ds(off, chunk)]
+        c = c_ref[pl.ds(off, chunk)]
+        # z_k = w_k r_k exp(-r_k v) and its suffix sums (the softmax
+        # normalization cancels in every conditional of the chain)
+        z = (w * r)[:, None] * jnp.exp(-r[:, None] * v[None, :])
+        return v, c, (off + col).astype(jnp.uint32), z, jnp.cumsum(z, 0)
 
-    def sweep_body(i, carry):
-        w_gk, r_gk = carry
-        sweep_abs = offset + i
-        # decorrelate sweeps by seed, not stream position: exact resume at
-        # any block boundary
-        seed_sweep = (base_seed * jnp.int32(-1640531535)  # 2654435761
-                      + sweep_abs)
-        if not use_hash_rng:
-            pltpu.prng_seed(seed_sweep, group)
-        rng = _Rng(use_hash_rng, seed_sweep, group)
-        if abl.empty:
-            # loop/seed/thinned-write floor: no stats, no conjugate
-            ns = ts = None
-        elif abl.fake_stats:
-            # suffix pass only; stats stand-in from one cheap reduction
-            if pack > 1:
-                _suffix_sums_packed(v, w_gk, r_gk, z_scr, K,
-                                    _segment_masks(pack, seg_masks))
-                shp = (pack, v.shape[1], K)
-            else:
-                _suffix_sums(v, w_gk, r_gk, z_scr, K)
-                shp = (v.shape[1], K)
-            tot = jnp.sum(c) / (K * shp[-2])
-            ns = jnp.broadcast_to(tot, shp)
-            ts = jnp.broadcast_to(tot * 3.0, shp)
-        elif tree:
-            ns, ts = _suff_stats_tree(rng, v, c, w_gk, r_gk, z_scr, K,
-                                      head_rows, small_rows, early_exit,
-                                      pack, seg_masks)
-        elif pack == 1:
-            ns, ts = _suff_stats(rng, v, c, w_gk, r_gk, z_scr, K,
-                                 head_rows, small_rows, early_exit, abl)
-        else:
-            ns, ts = _suff_stats_packed(rng, v, c, w_gk, r_gk, z_scr, K,
-                                        head_rows, small_rows, pack,
-                                        early_exit, seg_masks, abl)
-        if abl.empty or not abl.conj:
-            # keep an i-dependence so the loop body cannot fold away
-            eps = (jnp.float32(1e-12)
-                   * (sweep_abs % 2).astype(jnp.float32))
-            w_new, r_new = w_gk + eps, r_gk
-        else:
-            w_new, r_new = _conjugate_in_kernel(
-                rng, ns, ts, alpha, ga, gb, conj_kfirst,
-                early_exit[3] if len(early_exit) > 3 else False)
+    def row(x, j):
+        return jnp.sum(jnp.where(kio2 == j, x, 0.0), axis=0)
 
-        blk = (i + 1) // g - 1
+    def chain_body(rng, w, r, draw_fn):
+        # K-1 stage conditional-binomial chain over one chunk
+        def body(ci, stats):
+            v, c, elem, z, s = load_chunk(ci, w, r)
 
-        @pl.when((i + 1) % g == 0)
+            def stage(kk, carry):
+                rem, ns, ts = carry
+                j = Kp - 1 - kk
+                pcond = jnp.clip(row(z, j) / jnp.maximum(row(s, j), _TINY),
+                                 0.0, 1.0)
+                draw = draw_fn(rng, elem, rem, pcond, kk)
+                ns = jnp.where(kio == j, ns + jnp.sum(draw), ns)
+                ts = jnp.where(kio == j, ts + jnp.sum(v * draw), ts)
+                return rem - draw, ns, ts
+
+            rem, ns, ts = jax.lax.fori_loop(0, K - 1, stage, (c, *stats))
+            j = Kp - K
+            return (jnp.where(kio == j, ns + jnp.sum(rem), ns),
+                    jnp.where(kio == j, ts + jnp.sum(v * rem), ts))
+        return body
+
+    def draw_small(rng, elem, n, p, kk):
+        return _binom_inversion(rng.uniform(elem, kk), n, p, _INV_SMALL)
+
+    def single_body(rng, w, r):
+        # counts in {0, 1}: one uniform t per column; component k iff
+        # S_k > t >= S_{k+1}, i.e. k = #{k' >= 1 : S_k' > t}
+        def body(ci, stats):
+            v, c, elem, _, s = load_chunk(ci, w, r)
+            thresh = rng.uniform(elem) * row(s, Kp - 1)
+            k = jnp.sum(jnp.where((kio2 < Kp - 1) & (s > thresh[None, :]),
+                                  1, 0), axis=0)
+            hit = kio2 == (Kp - 1 - k)[None, :]
+            ns, ts = stats
+            return (ns + jnp.sum(jnp.where(hit, c[None, :], 0.0), axis=1),
+                    ts + jnp.sum(jnp.where(hit, (c * v)[None, :], 0.0),
+                                 axis=1))
+        return body
+
+    def sweep(i, carry):
+        w, r = carry
+        # decorrelate sweeps by seed, not stream position: exact resume
+        # at any block boundary
+        seed_sweep = base_seed * jnp.int32(-1640531535) + offset + i
+        rng = _Rng(seed_sweep, lane)
+        stats = (jnp.zeros_like(w), jnp.zeros_like(w))
+        if head_chunks > 0:
+            stats = jax.lax.fori_loop(
+                0, head_chunks, chain_body(rng, w, r, _binom_full), stats)
+        if small_chunks > head_chunks:
+            stats = jax.lax.fori_loop(head_chunks, small_chunks,
+                                      chain_body(rng, w, r, draw_small),
+                                      stats)
+        if n_chunks > small_chunks:
+            stats = jax.lax.fori_loop(small_chunks, n_chunks,
+                                      single_body(rng, w, r), stats)
+        ns, ts = stats
+        # conjugate update (reference gibbs.py:210-211) on the padded
+        # state vector; masked components keep weight 0 and rate 1
+        kel = kio.astype(jnp.uint32)
+        gw = _gamma_mt(rng, kel, jnp.where(live, alpha + ns, 1.0))
+        gr = _gamma_mt(rng, kel, jnp.where(live, ga + ns, 1.0))
+        gw = jnp.where(live, gw, 0.0)
+        w_new = gw / jnp.sum(gw)
+        r_new = jnp.where(live, gr / (gb + ts), 1.0)
+
+        @pl.when(jax.lax.rem(i + 1, jnp.int32(g)) == 0)
         def _():
-            if pack == 1:
-                w_out_ref[0, blk] = w_new
-                r_out_ref[0, blk] = r_new
-            else:
-                for s in range(pack):
-                    w_out_ref[0, blk * pack + s] = w_new[s]
-                    r_out_ref[0, blk * pack + s] = r_new[s]
+            blk = jax.lax.div(i + 1, jnp.int32(g)) - 1
+            w_out_ref[blk, :] = w_new
+            r_out_ref[blk, :] = r_new
 
-        return (w_new, r_new)
+        return w_new, r_new
 
-    w_fin, r_fin = jax.lax.fori_loop(
-        0, n_blocks * g, sweep_body, (w0_ref[0], r0_ref[0]))
-    w_fin_ref[0] = w_fin
-    r_fin_ref[0] = r_fin
+    w_fin, r_fin = jax.lax.fori_loop(0, n_blocks * g, sweep,
+                                     (w0_ref[...], r0_ref[...]))
+    w_fin_ref[...] = w_fin
+    r_fin_ref[...] = r_fin
 
 
-def _use_hash_rng(interpret: bool) -> bool:
-    """Device RNG selection: the portable counter-hash RNG is always used
-    in interpreter mode (no pltpu PRNG primitives there) and can be forced
-    on hardware with BASICRTA_DEVICE_RNG=hash — the statistically safe
-    fallback while any doubt about the hardware stream exists (the GOF
-    battery in scripts/device_prng.py validates both paths)."""
-    if interpret:
-        return True
-    return os.environ.get("BASICRTA_DEVICE_RNG", "hw") == "hash"
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "n_blocks", "tiers", "interpret",
-                                    "early_exit", "pack", "tree", "ablate",
-                                    "group_cap", "conj_kfirst"))
+@functools.partial(jax.jit, static_argnames=("cfg", "n_blocks", "tiers",
+                                             "interpret"))
 def segment_pallas(seed: jax.Array, sweep_offset: jax.Array,
                    state: MixtureState, values: jax.Array,
                    counts: jax.Array, cfg: GibbsConfig, n_blocks: int,
                    tiers: Tuple[int, int], interpret: bool = False,
-                   early_exit: Tuple = (False, "btrd_nat_h4", False, True),
-                   pack: int = 1, tree: bool = False,
-                   seg_mask: Optional[jax.Array] = None,
-                   ablate: str = "", group_cap: Optional[int] = None,
-                   conj_kfirst: bool = False):
-    """Advance all lanes by ``n_blocks`` thinning blocks in ONE fused
-    ``pallas_call``: every sweep's sufficient statistics AND the conjugate
-    Dirichlet/Gamma update run in VMEM; nothing touches HBM between sweeps
-    except the ``n_blocks`` thinned snapshots.
-
-    Drop-in replacement for batch._segment (same thinned outputs). The RNG
-    is seeded per (cfg-derived seed, absolute sweep index), so resumed runs
-    reproduce the uninterrupted chain for any segmentation.
+                   lane_offset=0):
+    """Advance all lanes by ``n_blocks`` thinning blocks in one fused
+    kernel. Drop-in replacement for batch._segment (same thinned outputs,
+    a different random stream).
 
     Args:
-        seed: int32 scalar base seed (shard-offset for multi-chip lanes).
+        seed: int32 scalar base seed.
         sweep_offset: int32 absolute sweep index of the segment start.
-        pack: logical lanes per physical 128-column lane (static). With
-            ``pack > 1``, ``values``/``counts`` are (B, SL * 128 // pack)
-            — B a multiple of pack, widths whole multiples of the
-            128 // pack segment width — and ``tiers`` are ROW tiers from
-            :func:`packed_row_tiers`; consecutive groups of ``pack``
-            logical lanes share one physical lane across SL rows (see
-            :func:`_suff_stats_packed`).
-        seg_mask: mixed-width packing (pack >= 2): (Bph, 128) f32
-            SEGMENT-ID tile — per column, the slot index in [0, pack) of
-            the logical lane owning it (lane g's slot s is logical lane
-            g * pack + s; slots may be empty and own no columns).
-            ``values``/``counts`` are then PHYSICAL (Bph, SL * 128) row
-            layouts (host-packed by batch run_batch from the per-lane
-            widths of batch._mixed_kpack), ``state`` stays logical
-            (pack * Bph, K), and ``tiers`` are physical-row tiers.
+        state: (B, K) weights/rates.
+        values/counts: (B, V), value columns sorted by multiplicity
+            descending; any V (padded here to whole chunks).
+        tiers: column tiers (head_end, single_start) from
+            kernels.compute_tiers.
+        interpret: run the kernel in the Pallas interpreter (tests on the
+            CPU); compiled kernels need a GPU.
+        lane_offset: int32 index of lane 0 in the whole batch. A lane's
+            stream is keyed by its global index, so a lane-sharded run
+            draws exactly the chains of the unsharded one.
     Returns:
         (state, W, R) with W/R (B, n_blocks, K) thinned samples.
     """
+    from basicrta_tpu.sampler.batch import _next_pow2
+    chunk = _CHUNK
     K = cfg.ncomp
+    Kp = _next_pow2(K, floor=2)
     B, V = values.shape
-    head_rows, small_rows = tiers
-    if seg_mask is not None:
-        if pack < 2 or V % _LANES or state.weights.shape[0] != pack * B:
-            raise ValueError(
-                f"mixed-width packing needs pack>=2, physical (Bph, SL*128)"
-                f" values and a (pack*Bph, K) state; got pack={pack}, "
-                f"values {values.shape}, state {state.weights.shape}")
-        return _segment_pallas_packed(seed, sweep_offset, state, values,
-                                      counts, cfg, n_blocks, head_rows,
-                                      small_rows, interpret, early_exit,
-                                      pack, tree, seg_mask, ablate,
-                                      group_cap, conj_kfirst)
-    if pack > 1:
-        if B % pack or (V * pack) % _LANES:
-            raise ValueError(
-                f"packed batch needs B % pack == 0 and width a multiple "
-                f"of 128 // pack; got B={B}, V={V}, pack={pack}")
-        return _segment_pallas_packed(seed, sweep_offset, state, values,
-                                      counts, cfg, n_blocks, head_rows,
-                                      small_rows, interpret, early_exit,
-                                      pack, tree, None, ablate, group_cap,
-                                      conj_kfirst)
-    SL = V // _LANES
-    # VMEM: z_scr (K rows) + the chain's per-stage temporaries; the tree
-    # formulation stacks up to Kp/2 nodes x ~5 live tensors at its last
-    # level, so it budgets ~3x more rows per lane
-    G, NG, Bp, w3, r3, v4, c4 = _group_layout(state, values, counts, K,
-                                              3 * K + 12 if tree else K + 12,
-                                              group_cap)
-
-    kernel = functools.partial(_segment_kernel, K, head_rows, small_rows,
-                               _use_hash_rng(interpret), cfg.g, n_blocks,
-                               cfg.alpha_eff, cfg.gamma_shape,
-                               cfg.gamma_rate, early_exit, 1, bool(tree),
-                               False, ablate, conj_kfirst)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(NG,),
-        in_specs=[
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SL, G, _LANES), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, SL, G, _LANES), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, n_blocks, G, K), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n_blocks, G, K), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, K), lambda i, s: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((K, SL, G, _LANES), jnp.float32)],
-    )
+    n_chunks = -(-V // chunk)
+    pad_v = n_chunks * chunk - V
+    values = jnp.pad(values.astype(jnp.float32), ((0, 0), (0, pad_v)),
+                     constant_values=1.0)
+    counts = jnp.pad(counts.astype(jnp.float32), ((0, 0), (0, pad_v)))
+    # components reversed and padded at the front (see _segment_kernel)
+    w0 = jnp.pad(state.weights.astype(jnp.float32)[:, ::-1],
+                 ((0, 0), (Kp - K, 0)))
+    r0 = jnp.pad(state.rates.astype(jnp.float32)[:, ::-1],
+                 ((0, 0), (Kp - K, 0)), constant_values=1.0)
     seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                       jnp.asarray(sweep_offset, jnp.int32)])
-    W4, R4, wf, rf = pl.pallas_call(
+                       jnp.asarray(sweep_offset, jnp.int32),
+                       jnp.asarray(lane_offset, jnp.int32), jnp.int32(0)])
+    kernel = functools.partial(
+        _segment_kernel, K, Kp, chunk, chunk_tiers(tiers, n_chunks, chunk),
+        n_chunks, cfg.g, n_blocks, cfg.alpha_eff, cfg.gamma_shape,
+        cfg.gamma_rate)
+    Vp = n_chunks * chunk
+    lane_vec = lambda n: pl.BlockSpec((None, n), lambda b: (b, 0))  # noqa
+    thinned = pl.BlockSpec((None, n_blocks, Kp), lambda b: (b, 0, 0))
+    W, R, wf, rf = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((NG, n_blocks, G, K), jnp.float32),
-                   jax.ShapeDtypeStruct((NG, n_blocks, G, K), jnp.float32),
-                   jax.ShapeDtypeStruct((NG, G, K), jnp.float32),
-                   jax.ShapeDtypeStruct((NG, G, K), jnp.float32)],
-        # interpret mode uses the hash RNG (no pltpu PRNG primitives), so
-        # the generic interpreter suffices — unlike the TPU interpreter it
-        # composes with shard_map for CPU-based multi-chip tests
-        interpret=bool(interpret),
-    )(seeds, w3, r3, v4, c4)
-    W = jnp.swapaxes(W4, 1, 2).reshape(Bp, n_blocks, K)[:B]
-    R = jnp.swapaxes(R4, 1, 2).reshape(Bp, n_blocks, K)[:B]
-    st = MixtureState(wf.reshape(Bp, K)[:B], rf.reshape(Bp, K)[:B])
-    return st, W, R
-
-
-def _segment_pallas_packed(seed, sweep_offset, state, values, counts, cfg,
-                           n_blocks, head_rows, small_rows, interpret,
-                           early_exit, pack, tree: bool = False,
-                           seg_mask=None, ablate: str = "",
-                           group_cap: Optional[int] = None,
-                           conj_kfirst: bool = False):
-    """segment_pallas for packed buckets: ``pack`` consecutive logical
-    lanes of width W = 128 // pack share one physical lane, each owning
-    the fixed column range [s*W, (s+1)*W) of every one of the lane's
-    SL = logical_width // W rows. Logical columns are multiplicity-sorted,
-    so row r of a segment holds its columns [r*W, (r+1)*W) — tier rows
-    stay meaningful (packed_row_tiers).
-
-    With ``seg_mask`` (mixed-width, pack=2): values/counts arrive already
-    in PHYSICAL (Bph, SL * 128) layout with a per-lane boundary column,
-    and the kernel reads the per-lane ownership masks instead of the
-    static uniform split (see segment_pallas)."""
-    K = cfg.ncomp
-    mixed = seg_mask is not None
-    if mixed:
-        Bph, WP = values.shape           # physical width WP = SL * 128
-        SL = WP // _LANES
-        B = state.weights.shape[0]       # logical lanes = 2 * Bph
-        v_ph = values.reshape(Bph, SL, _LANES)
-        c_ph = counts.reshape(Bph, SL, _LANES)
-    else:
-        B, WL = values.shape             # logical width WL = W * SL
-        W = _LANES // pack
-        SL = WL // W
-        Bph = B // pack
-
-        def to_phys(x):
-            # (B, SL * W) logical -> (Bph, SL, 128): segment s of a
-            # physical lane owns columns [s*W, (s+1)*W) of every row
-            x = x.reshape(Bph, pack, SL, W)
-            return jnp.swapaxes(x, 1, 2).reshape(Bph, SL, _LANES)
-
-        v_ph = to_phys(values)
-        c_ph = to_phys(counts)
-
-    budget = 12 * 2 ** 20
-    # per-physical-lane VMEM: z_scr + temps ((K + 12) rows x SL; the tree
-    # stacks ~3x more at its widest level) plus the thinned output tiles
-    # (2 * n_blocks * pack * K floats)
-    rows_budget = 3 * K + 12 if tree else K + 12
-    per_lane = rows_budget * SL * _LANES * 4 + 2 * n_blocks * pack * K * 4
-    g_fit = max(8, (budget // max(1, per_lane)) // 8 * 8)
-    cap = int(min(group_cap or _GROUP, g_fit))
-    NG = -(-Bph // cap)
-    G = max(8, (-(-Bph // NG) + 7) // 8 * 8)
-    Bpp = NG * G
-    pad_ph = Bpp - Bph
-    v4 = jnp.swapaxes(
-        jnp.pad(v_ph, ((0, pad_ph), (0, 0), (0, 0)), constant_values=1.0)
-        .reshape(NG, G, SL, _LANES), 1, 2)
-    c4 = jnp.swapaxes(
-        jnp.pad(c_ph, ((0, pad_ph), (0, 0), (0, 0)))
-        .reshape(NG, G, SL, _LANES), 1, 2)
-
-    # state: (B, K) logical -> (NG, pack, G, K)
-    def to_pgk(x, fill):
-        x = x.reshape(Bph, pack, K)
-        x = jnp.pad(x, ((0, pad_ph), (0, 0), (0, 0)), constant_values=fill)
-        return jnp.swapaxes(x.reshape(NG, G, pack, K), 1, 2)
-
-    w4 = to_pgk(state.weights, 1.0)
-    r4 = to_pgk(state.rates, 1.0)
-
-    in_specs = [
-        pl.BlockSpec((1, pack, G, K), lambda i, s: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, pack, G, K), lambda i, s: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, SL, G, _LANES), lambda i, s: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, SL, G, _LANES), lambda i, s: (i, 0, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    operands = [w4, r4, v4, c4]
-    if mixed:
-        m3 = jnp.pad(jnp.asarray(seg_mask, jnp.float32),
-                     ((0, pad_ph), (0, 0))).reshape(NG, G, _LANES)
-        in_specs.append(pl.BlockSpec((1, G, _LANES),
-                                     lambda i, s: (i, 0, 0),
-                                     memory_space=pltpu.VMEM))
-        operands.append(m3)
-
-    kernel = functools.partial(_segment_kernel, K, head_rows, small_rows,
-                               _use_hash_rng(interpret), cfg.g, n_blocks,
-                               cfg.alpha_eff, cfg.gamma_shape,
-                               cfg.gamma_rate, early_exit, pack, bool(tree),
-                               mixed, ablate, conj_kfirst)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(NG,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((1, n_blocks * pack, G, K),
-                         lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, n_blocks * pack, G, K),
-                         lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, pack, G, K), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, pack, G, K), lambda i, s: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((K, SL, G, _LANES), jnp.float32)],
-    )
-    seeds = jnp.stack([jnp.asarray(seed, jnp.int32),
-                       jnp.asarray(sweep_offset, jnp.int32)])
-    W4, R4, wf, rf = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((NG, n_blocks * pack, G, K), jnp.float32),
-            jax.ShapeDtypeStruct((NG, n_blocks * pack, G, K), jnp.float32),
-            jax.ShapeDtypeStruct((NG, pack, G, K), jnp.float32),
-            jax.ShapeDtypeStruct((NG, pack, G, K), jnp.float32)],
-        interpret=bool(interpret),   # see segment_pallas on interpret mode
-    )(seeds, *operands)
-
-    def thinned(x):
-        # (NG, n_blocks * pack, G, K) -> (B, n_blocks, K) logical lanes
-        x = x.reshape(NG, n_blocks, pack, G, K)
-        x = jnp.transpose(x, (0, 3, 2, 1, 4))      # (NG, G, pack, nb, K)
-        return x.reshape(Bpp * pack, n_blocks, K)[:B]
-
-    def final(x):
-        x = jnp.swapaxes(x, 1, 2)                  # (NG, G, pack, K)
-        return x.reshape(Bpp * pack, K)[:B]
-
-    return (MixtureState(final(wf), final(rf)), thinned(W4), thinned(R4))
+        grid=(B,),
+        in_specs=[pl.BlockSpec((4,), lambda b: (0,)), lane_vec(Kp),
+                  lane_vec(Kp), lane_vec(Vp), lane_vec(Vp)],
+        out_specs=[thinned, thinned, lane_vec(Kp), lane_vec(Kp)],
+        out_shape=[jax.ShapeDtypeStruct((B, n_blocks, Kp), jnp.float32),
+                   jax.ShapeDtypeStruct((B, n_blocks, Kp), jnp.float32),
+                   jax.ShapeDtypeStruct((B, Kp), jnp.float32),
+                   jax.ShapeDtypeStruct((B, Kp), jnp.float32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="gibbs_segment",
+    )(seeds, w0, r0, values, counts)
+    unpad = lambda x: x[..., Kp - K:][..., ::-1]  # noqa: E731
+    return MixtureState(unpad(wf), unpad(rf)), unpad(W), unpad(R)

@@ -58,15 +58,20 @@ def cpu_contacts(batches, resids1, resids2, n_atoms1, cutoff=10.0):
         for k in range(len(b.frame_ids)):
             box = np.asarray(b.box[k], np.float64)
             pos = np.asarray(b.positions[k], np.float64)
-            p1 = np.mod(pos[:n_atoms1], box)
-            p2 = np.mod(pos[n_atoms1:], box)
-            # capped periodic neighbor search (reference
-            # contacts.py:115-117 semantics: all cross-group atom pairs
-            # within max_cutoff under the minimum-image convention)
-            t1 = cKDTree(p1, boxsize=box)
-            t2 = cKDTree(p2, boxsize=box)
-            d = t1.sparse_distance_matrix(t2, cutoff,
-                                          output_type="ndarray")
+            if box.ndim == 2:
+                d = _triclinic_pairs(pos[:n_atoms1], pos[n_atoms1:], box,
+                                     cutoff)
+            else:
+                p1 = np.mod(pos[:n_atoms1], box)
+                p2 = np.mod(pos[n_atoms1:], box)
+                # capped periodic neighbor search (reference
+                # contacts.py:115-117 semantics: all cross-group atom
+                # pairs within max_cutoff under the minimum-image
+                # convention)
+                t1 = cKDTree(p1, boxsize=box)
+                t2 = cKDTree(p2, boxsize=box)
+                d = t1.sparse_distance_matrix(t2, cutoff,
+                                              output_type="ndarray")
             if not len(d):
                 continue
             # min distance per (res1, res2) pair (reference
@@ -89,6 +94,35 @@ def cpu_contacts(batches, resids1, resids2, n_atoms1, cutoff=10.0):
                 np.full(len(kk), b.times[k], np.float64))
     return {k: (np.concatenate(v) if v else np.zeros(0))
             for k, v in out.items()}
+
+
+def _triclinic_pairs(p1, p2, H, cutoff):
+    """Minimum-image atom pairs within ``cutoff`` in a triclinic box (rows
+    of H are the GROMACS-reduced lattice vectors): both groups wrapped
+    into the unit cell, group 2 replicated over the 27 neighbouring
+    images, one non-periodic tree query, minimum over images per pair.
+    Exact while the cutoff is below half the shortest box height."""
+    inv = np.linalg.inv(H)
+
+    def wrap(p):
+        f = p @ inv
+        return (f - np.floor(f)) @ H
+
+    p1, p2 = wrap(p1), wrap(p2)
+    shifts = np.array([[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+                       for k in (-1, 0, 1)], np.float64) @ H
+    img = (p2[None] + shifts[:, None]).reshape(-1, 3)
+    d = cKDTree(p1).sparse_distance_matrix(cKDTree(img), cutoff,
+                                           output_type="ndarray")
+    j = d["j"] % len(p2)
+    key = d["i"].astype(np.int64) * len(p2) + j
+    order = np.lexsort((d["v"], key))
+    first = np.r_[True, key[order][1:] != key[order][:-1]]
+    sel = order[first]
+    out = np.empty(len(sel), dtype=[("i", np.int64), ("j", np.int64),
+                                    ("v", np.float64)])
+    out["i"], out["j"], out["v"] = d["i"][sel], j[sel], d["v"][sel]
+    return out
 
 
 def _check_parity(rows, rec):

@@ -21,11 +21,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-import jax  # noqa: E402
+from basicrta_tpu.jax_cache import enable_compilation_cache  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
+enable_compilation_cache()
 
 
 def make_system(root: str, n_prot: int, n_lip: int, frames: int,
@@ -100,7 +98,7 @@ def make_system(root: str, n_prot: int, n_lip: int, frames: int,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--workdir", default="/tmp/basicrta_e2e")
+    ap.add_argument("--workdir", default="basicrta_e2e")
     ap.add_argument("--frames", type=int, default=5000)
     ap.add_argument("--nprot", type=int, default=120)
     ap.add_argument("--nlip", type=int, default=60)
@@ -109,15 +107,6 @@ def main():
     args = ap.parse_args()
 
     from basicrta_tpu.cli import main as cli
-
-    # honor the CLI's platform override BEFORE touching the backend, then
-    # absorb the remote-attachment warm-up so stage timings reflect the
-    # pipeline, not the transport's first-transfer cost
-    plat = os.environ.get("BASICRTA_PLATFORM")
-    if plat:
-        jax.config.update("jax_platforms", plat)
-    import jax.numpy as jnp
-    np.asarray(jnp.ones((8,)) * 2)
 
     root = args.workdir
     os.makedirs(root, exist_ok=True)

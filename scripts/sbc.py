@@ -31,11 +31,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-import jax  # noqa: E402
+from basicrta_tpu.jax_cache import enable_compilation_cache  # noqa: E402,E501
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
+enable_compilation_cache()
 
 
 def functionals(w, r, ts_probe):
@@ -63,10 +61,8 @@ def run_sbc(M=64, n_events=2000, ncomp=5, niter=20_000, g=100,
     for m in range(M):
         n_m = n_events
         if mixed_sizes:
-            # heterogeneous replicate sizes force the mixed-width packed
-            # layout (per-lane slot widths, batch._mixed_kpack):
-            # rank uniformity then certifies the seg-id kernel path on
-            # the whole posterior, not just moments
+            # heterogeneous replicate sizes spread the lanes over several
+            # buckets of the value ladder
             n_m = int(10 ** rng.uniform(np.log10(n_events / 4),
                                         np.log10(n_events)))
         comp = rng.choice(ncomp, n_m, p=w_true[m])
@@ -76,8 +72,7 @@ def run_sbc(M=64, n_events=2000, ncomp=5, niter=20_000, g=100,
     # every value unique, the collapsed formulation degrades gracefully)
     batches = bucket_residues(datasets)
     if mixed_sizes:
-        n_mixed = sum(b.bounds is not None for b in batches)
-        progress(f"SBC layout: {len(batches)} buckets, {n_mixed} mixed")
+        progress(f"SBC layout: {len(batches)} buckets")
     names, W, R = [], [], []
     for b in batches:
         res = run_batch(b, cfg, engine=engine)

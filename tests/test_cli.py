@@ -167,12 +167,11 @@ def test_cli_gibbs_specific_resid(contacts_done, monkeypatch):
 @pytest.mark.slow
 def test_cli_gibbs_ndevices(contacts_done, monkeypatch):
     """--ndevices shards the residue lanes over the device mesh — the
-    multi-chip product path (round-1 gap: mesh execution was unreachable
-    from the CLI)."""
+    multi-device product path."""
     monkeypatch.chdir(contacts_done)
     main(["gibbs", "--contacts", "contacts_7.0.npz", "--niter", "400",
           "--g", "10", "--ncomp", "3", "--ndevices", "0",
-          "--engine", "pallas"])
+          "--engine", "auto"])
     assert os.path.exists("basicrta-7.0/W7/gibbs_400.npz")
     from basicrta_tpu.sampler.gibbs import Gibbs
     g = Gibbs.load("basicrta-7.0/W7/gibbs_400.npz")
@@ -214,3 +213,23 @@ def test_cli_gibbs_profile_and_multihost_single_process(contacts_done,
           "--multihost"])
     assert os.path.exists("basicrta-7.0/W7/gibbs_200.npz")
     assert os.path.isdir(trace_dir) and os.listdir(trace_dir)
+
+
+def test_cluster_without_matplotlib(contacts_done, monkeypatch, capsys):
+    """cluster writes the tau table and the PDB without matplotlib and
+    says that the figures were skipped."""
+    import sys
+    monkeypatch.chdir(contacts_done)
+    main(["gibbs", "--contacts", "contacts_7.0.npz", "--niter", "500",
+          "--ncomp", "3", "--nchains", "1"])
+    monkeypatch.setitem(sys.modules, "matplotlib", None)   # import fails
+    for f in ("tausout.npy", "tau_bcolored.pdb"):
+        if os.path.exists(f):
+            os.remove(f)
+    main(["cluster", "--cutoff", "7.0", "--niter", "500",
+          "--structure", "struct.pdb"])
+    out = capsys.readouterr()
+    assert os.path.exists("tausout.npy")
+    assert os.path.exists("tau_bcolored.pdb")
+    assert "matplotlib is not installed" in out.err
+    assert "t_slow.png" not in out.out

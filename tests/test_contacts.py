@@ -354,8 +354,8 @@ class TestMapContacts:
         assert rec.meta.ts == pytest.approx(ts, rel=1e-4)
 
     def test_frame_sharded_matches_unsharded(self):
-        """n_devices shards the frame axis over the mesh (the TPU
-        equivalent of the reference's trajectory-slice pool,
+        """n_devices shards the frame axis over the mesh (the counterpart
+        of the reference's trajectory-slice pool,
         contacts.py:60-75); results are identical to one device."""
         ts = 0.1
         rng = np.random.default_rng(8)

@@ -59,7 +59,8 @@ def equivalence_runs():
     cfg = GibbsConfig(ncomp=5, niter=3000, g=10, burnin=1000, seed=11)
     Wn, Rn = numpy_reference_sampler(x, cfg, seed=1)
     batch = bucket_residues({"R": x})[0]
-    ours = {eng: run_batch(batch, cfg, engine=eng)
+    ours = {eng: run_batch(batch, cfg, engine=eng,
+                           interpret=eng == "pallas")
             for eng in ("xla", "pallas")}
     return x, cfg, (Wn, Rn), ours
 
@@ -109,7 +110,7 @@ def test_real_data_posterior_equivalence():
     cfg = GibbsConfig(ncomp=5, niter=1200, g=10, burnin=400, seed=21)
     Wn, Rn = numpy_reference_sampler(x, cfg, seed=2)
     batch = bucket_residues({"W313": x})[0]
-    res = run_batch(batch, cfg, engine="pallas")
+    res = run_batch(batch, cfg, engine="pallas", interpret=True)
 
     burn = cfg.burnin_samples
     w_ref, r_ref = _dominant(Wn, Rn, burn)

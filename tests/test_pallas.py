@@ -1,6 +1,6 @@
-"""Tests of the fused Pallas sweep kernel (TPU-interpreter mode on CPU)."""
+"""Tests of the fused segment kernel's samplers and numerics (the kernel
+itself runs in the Pallas interpreter on the CPU)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,46 +8,43 @@ import pytest
 from basicrta_tpu.config import GibbsConfig
 from basicrta_tpu.ops.surv import simulate_hyperexp, discretize_times
 from basicrta_tpu.sampler.batch import bucket_residues, run_batch
-from basicrta_tpu.sampler.kernels import (MixtureState, init_mixture_params,
-                                          dedup_times, compute_tiers)
-from basicrta_tpu.sampler.pallas_sweep import (sweep_stats,
-                                               pad_tiers_to_rows, _gammaln)
 
 
 def test_gammaln_lanczos():
     from scipy.special import gammaln as ref
+    from basicrta_tpu.ops.precise import gammaln_f32
     x = jnp.asarray([0.5, 1.0, 2.0, 7.3, 40.0, 2000.0, 446606.0],
                     jnp.float32)
-    ours = np.asarray(_gammaln(x))
+    ours = np.asarray(gammaln_f32(x))
     expect = ref(np.asarray(x, np.float64))
     assert np.allclose(ours, expect, rtol=2e-5, atol=1e-5)
 
 
 def test_stirling_tail_matches_lgamma():
     from scipy.special import gammaln as ref
-    from basicrta_tpu.sampler.pallas_sweep import _stirling_tail
+    from basicrta_tpu.ops.precise import stirling_tail
     x = np.asarray([0, 1, 2, 5, 9, 9.0, 10, 23, 400, 44660], np.float64)
     expect = ref(x + 1) - ((x + 0.5) * np.log(x + 1) - (x + 1)
                            + 0.5 * np.log(2 * np.pi))
-    ours = np.asarray(_stirling_tail(jnp.asarray(x, jnp.float32)))
+    ours = np.asarray(stirling_tail(jnp.asarray(x, jnp.float32)))
     assert np.allclose(ours, expect, atol=2e-7)
 
 
-@pytest.mark.parametrize("mode", [True, False, "btrd", "btrd_sl",
-                                  "btrd_nat"])
 @pytest.mark.slow
-def test_binom_btrs_modes_gof(mode):
-    """Chi-square GOF of every accept-test form/loop shape of the kernel
-    BTRS against the exact PMF, drawn with the hash RNG outside a kernel
-    (the same code path interpret-mode kernels take)."""
+def test_binom_btrs_modes_gof():
+    """Chi-square GOF of the kernel's BTRS binomial against the exact PMF,
+    drawn with the kernel's counter-hash RNG outside a kernel (the same
+    arithmetic the compiled and interpreted kernels run)."""
     from scipy import stats
     from basicrta_tpu.sampler.pallas_sweep import _Rng, _binom_btrs
     n, p, size = 300.0, 0.2, 50000
     draws = []
     for seed in range(5):
-        rng = _Rng(True, jnp.int32(seed), jnp.int32(0))
-        m = _binom_btrs(rng, jnp.full((size // 5,), n),
-                        jnp.full((size // 5,), p), mode)
+        rng = _Rng(jnp.int32(seed), jnp.int32(0))
+        elem = jnp.arange(size // 5, dtype=jnp.uint32)
+        m = _binom_btrs(rng, elem, jnp.full((size // 5,), n),
+                        jnp.full((size // 5,), p),
+                        jnp.zeros((size // 5,), bool))
         draws.append(np.asarray(m))
     m = np.concatenate(draws)
     counts = np.bincount(m.astype(int), minlength=int(n) + 1)
@@ -59,110 +56,51 @@ def test_binom_btrs_modes_gof(mode):
 
 
 def test_binom_btrd_agrees_with_lgamma_form():
-    """BTRD is an algebraic regrouping of the lgamma accept test: on the
-    same RNG stream the two forms must take identical accept decisions up
-    to f32 boundary flips (checked to 1e-11 in f64; see _binom_btrs).
-    Marginal flips cascade — the element then accepts a different k in a
-    later round — so agreement is bounded by the flip rate, not exactness:
-    measured 0.11% at the worst case (n=5000, where the lgamma form's
-    amplified log error is largest)."""
-    from basicrta_tpu.sampler.pallas_sweep import _Rng, _binom_btrs
+    """BTRD is an algebraic regrouping of the lgamma accept test: for the
+    same proposals, the kernel's f32 BTRD decision must match the lgamma
+    form evaluated in f64, up to f32 boundary flips (marginal decisions,
+    well below 0.3% of proposals)."""
+    from scipy.special import gammaln
+    from basicrta_tpu.sampler.pallas_sweep import _btrs_round, _btrs_setup
+    rng = np.random.default_rng(5)
     size = 40000
     for n, p in [(120.0, 0.45), (5000.0, 0.47), (800.0, 0.05)]:
-        a = np.asarray(_binom_btrs(_Rng(True, jnp.int32(3), jnp.int32(1)),
-                                   jnp.full((size,), n),
-                                   jnp.full((size,), p), False))
-        b = np.asarray(_binom_btrs(_Rng(True, jnp.int32(3), jnp.int32(1)),
-                                   jnp.full((size,), n),
-                                   jnp.full((size,), p), "btrd_sl"))
-        agree = np.mean(a == b)
+        u = rng.uniform(2 ** -25, 1, size).astype(np.float32)
+        v = rng.uniform(2 ** -25, 1, size).astype(np.float32)
+        nn = jnp.full((size,), n, jnp.float32)
+        k, ok = _btrs_round(jnp.asarray(u), jnp.asarray(v), nn,
+                            _btrs_setup(nn, jnp.full((size,), p,
+                                                     jnp.float32)))
+        k, ok = np.asarray(k, np.float64), np.asarray(ok)
+        q = 1.0 - p
+        spq = np.sqrt(n * p * q)
+        b = 1.15 + 2.53 * spq
+        a = -0.0873 + 0.0248 * b + 0.01 * p
+        vr = 0.92 - 4.2 / b
+        alpha = (2.83 + 5.1 / b) * spq
+        m = np.floor((n + 1.0) * p)
+        us = 0.5 - np.abs(u.astype(np.float64) - 0.5)
+        v64 = v.astype(np.float64)
+        inr = (k >= 0) & (k <= n)
+        kk = np.clip(k, 0, n)
+        vv = np.log(v64 * alpha / (a / (us * us) + b))
+        slow = vv <= (gammaln(m + 1) + gammaln(n - m + 1) - gammaln(kk + 1)
+                      - gammaln(n - kk + 1) + (kk - m) * np.log(p / q))
+        ref = inr & (((us >= 0.07) & (v64 <= vr)) | slow)
+        agree = np.mean(ok == ref)
         assert agree > 0.997, f"n={n} p={p}: agreement {agree}"
-
-
-@pytest.fixture(scope="module")
-def stats_case():
-    rng = np.random.default_rng(31)
-    B, V, K = 3, 512, 8
-    vals = np.zeros((B, V))
-    cnts = np.zeros((B, V))
-    for i in range(B):
-        x = discretize_times(simulate_hyperexp(
-            25000, [0.7, 0.25, 0.05], [3.0, 0.3, 0.02], rng), 0.1)
-        v, c = dedup_times(x)
-        order = np.argsort(-c)
-        v, c = v[order][:V], c[order][:V]
-        vals[i, :len(v)] = v
-        vals[i, len(v):] = 1.0
-        cnts[i, :len(c)] = c
-    order, tiers = compute_tiers(cnts)
-    vals = np.take_along_axis(vals, order, -1)
-    cnts = np.take_along_axis(cnts, order, -1)
-    return vals, cnts, pad_tiers_to_rows(tiers, V), K
-
-
-@pytest.mark.parametrize("tree", [False, True])
-@pytest.mark.slow
-def test_sweep_stats_exact_totals_and_moments(stats_case, tree):
-    vals, cnts, tiers, K = stats_case
-    B = vals.shape[0]
-    st0 = init_mixture_params(K)
-    state = MixtureState(jnp.tile(st0.weights, (B, 1)),
-                         jnp.tile(st0.rates, (B, 1)))
-    reps = 8
-    NS = []
-    for s in range(reps):
-        ns, ts = sweep_stats(jnp.int32(s), state,
-                             jnp.asarray(vals, jnp.float32),
-                             jnp.asarray(cnts, jnp.float32), K, tiers,
-                             interpret=True, tree=tree)
-        ns, ts = np.asarray(ns), np.asarray(ts)
-        assert np.allclose(ns.sum(1), cnts.sum(1))               # exact N
-        assert np.allclose(ts.sum(1), (vals * cnts).sum(1), rtol=1e-4)
-        NS.append(ns)
-    mean_ns = np.mean(NS, axis=0)
-    w = np.asarray(st0.weights)
-    r = np.asarray(st0.rates)
-    z = w * r * np.exp(-np.einsum("k,bv->bvk", r, vals))
-    z = z / z.sum(-1, keepdims=True)
-    expect = np.einsum("bv,bvk->bk", cnts, z)
-    sd = np.sqrt(np.einsum("bv,bvk->bk", cnts, z * (1 - z)) / reps)
-    zscore = np.abs(mean_ns - expect) / np.maximum(sd, 2.0)
-    assert zscore.max() < 5.0
-
-
-@pytest.mark.parametrize("tiers", [(1, 3), (0, 4), (4, 4), (0, 0), (2, 2)])
-@pytest.mark.slow
-def test_sweep_stats_tier_configs(tiers, rng):
-    """All tier layouts (incl. single-branch) compile and conserve totals.
-
-    Counts respect each tier's contract (head unbounded, small <= 8,
-    singleton <= 1) — the layout compute_tiers/pad_tiers_to_rows produces.
-    """
-    B, V, K = 2, 512, 5
-    vals = jnp.asarray(np.sort(rng.uniform(0.1, 30, (B, V))), jnp.float32)
-    cnts = rng.integers(0, 50, (B, V)).astype(np.float64)
-    head, small = tiers
-    cnts[:, head * 128:small * 128] = np.minimum(
-        cnts[:, head * 128:small * 128], 8)
-    cnts[:, small * 128:] = np.minimum(cnts[:, small * 128:], 1)
-    cnts = jnp.asarray(cnts, jnp.float32)
-    st0 = init_mixture_params(K)
-    state = MixtureState(jnp.tile(st0.weights, (B, 1)),
-                         jnp.tile(st0.rates, (B, 1)))
-    ns, ts = sweep_stats(jnp.int32(1), state, vals, cnts, K, tiers,
-                         interpret=True)
-    assert np.allclose(np.asarray(ns).sum(1), np.asarray(cnts).sum(1))
 
 
 @pytest.mark.slow
 def test_engine_agreement(rng):
-    """Pallas and XLA engines sample statistically equivalent posteriors."""
+    """Kernel (interpreted) and XLA engines sample statistically
+    equivalent posteriors."""
     x = discretize_times(simulate_hyperexp(
         15000, [0.8, 0.17, 0.03], [3.0, 0.25, 0.02], rng), 0.1)
     batch = bucket_residues({"R0": x})[0]
     cfg = GibbsConfig(ncomp=5, niter=1500, g=10, burnin=500, seed=3)
     rx = run_batch(batch, cfg, engine="xla")
-    rp = run_batch(batch, cfg, engine="pallas")
+    rp = run_batch(batch, cfg, engine="pallas", interpret=True)
     b = cfg.burnin_samples
     for r in (rx, rp):
         assert np.all(np.isfinite(r.mcweights))
@@ -173,473 +111,39 @@ def test_engine_agreement(rng):
             == pytest.approx(rp.mcrates[0][b:, ip].mean(), rel=0.05))
 
 
-def test_pad_tiers_to_rows():
-    assert pad_tiers_to_rows((0, 0), 512) == (0, 0)
-    assert pad_tiers_to_rows((1, 130), 512) == (1, 2)
-    assert pad_tiers_to_rows((128, 128), 512) == (1, 1)
-    assert pad_tiers_to_rows((513, 600), 512) == (4, 4)  # clamped to SL
-
-
-def test_packed_row_tiers():
-    from basicrta_tpu.sampler.pallas_sweep import packed_row_tiers
-    assert packed_row_tiers((0, 0), 16, 1) == (0, 0)   # all singleton
-    assert packed_row_tiers((0, 7), 16, 1) == (0, 1)   # small-tier row
-    assert packed_row_tiers((3, 20), 16, 1) == (1, 1)  # head-tier row
-    assert packed_row_tiers((3, 0), 16, 1) == (1, 1)
-    # multi-row 64-wide segments: logical boundary at column t -> row
-    # boundary ceil(t / 64), clamped to SL
-    assert packed_row_tiers((10, 70), 64, 3) == (1, 2)
-    assert packed_row_tiers((65, 300), 64, 3) == (2, 3)
-    assert packed_row_tiers((0, 64), 64, 3) == (0, 1)
-
-
-class TestPackedBuckets:
-    """Sub-lane packing: small residues share a physical 128-column lane
-    (8/4/2-up by width 16/32/64) with per-segment chains in the fused
-    kernel — the round-3 answer to the 37.6% padding waste of the
-    128-column floor (VERDICT round 2)."""
-
-    def _small_residue(self, rng, n, vmax, rate=2.0):
-        # small-V data with a clean (unimodal) posterior: V grid points
-        # with geometric multiplicities matching an exponential at `rate`
-        # (truncating real hyperexp draws to their smallest V uniques
-        # would amputate the tail and leave a mis-specified, multi-modal
-        # posterior that mixes too slowly for an equivalence test)
-        ts = 3.0 / (rate * vmax)
-        vals = ts * np.arange(1, vmax + 1)
-        w = np.exp(-rate * vals)
-        counts = np.maximum(1, np.round(n * w / w.sum())).astype(int)
-        x = np.repeat(vals, counts)
-        return rng.permutation(x)
-
-    def test_bucket_layout(self, rng):
-        residues = {
-            "A": self._small_residue(rng, 200, 12),
-            "B": self._small_residue(rng, 400, 30),
-            "C": self._small_residue(rng, 800, 55),
-            "D": discretize_times(simulate_hyperexp(
-                20000, [0.7, 0.3], [3.0, 0.1], rng), 0.1),
-        }
-        batches = bucket_residues(residues, consolidate=False)
-        by_names = {tuple(b.names): b for b in batches}
-        a = by_names[("A",)]
-        assert a.pack == 8 and a.values.shape[1] == 16
-        b = by_names[("B",)]
-        assert b.pack == 4 and b.values.shape[1] == 32
-        c = by_names[("C",)]
-        assert c.pack == 2 and c.values.shape[1] == 64
-        # the default DP layout may merge this tiny workload's buckets
-        # (calibrated cost model, _dp_layout) but must keep every residue
-        # exactly once with a fitting width
-        merged = bucket_residues(residues)
-        names = [n for bt in merged for n in bt.names]
-        assert sorted(names) == ["A", "B", "C", "D"]
-        for bt in merged:
-            for i, n in enumerate(bt.names):
-                assert (bt.counts[i] > 0).sum() <= bt.values.shape[1]
-        # an explicit floor keeps the caller's single-bucket layout
-        solo = bucket_residues(residues, floor=1024)
-        assert len(solo) == 1 and solo[0].pack == 1
-
-    @pytest.mark.slow
-    def test_packed_lane_isolation(self, rng):
-        """Packed lanes must not leak data across segments: residues with
-        very different rates packed together recover their own rates."""
-        fast = self._small_residue(rng, 3000, 14, rate=4.0)
-        slow = self._small_residue(rng, 3000, 14, rate=0.1)
-        residues = {}
-        for i in range(4):
-            residues[f"F{i}"] = fast
-            residues[f"S{i}"] = slow
-        batch = bucket_residues(residues, consolidate=False)[0]
-        assert batch.pack == 8 and batch.size == 8
-        cfg = GibbsConfig(ncomp=4, niter=2000, g=10, seed=5)
-        res = run_batch(batch, cfg, engine="pallas")
-        b = 60
-        for i, name in enumerate(res.names):
-            w = res.mcweights[i][b:]
-            r = res.mcrates[i][b:]
-            k = w.mean(0).argmax()
-            dominant_rate = r[:, k].mean()
-            if name.startswith("F"):
-                assert dominant_rate > 1.0, (name, dominant_rate)
-            else:
-                assert dominant_rate < 0.4, (name, dominant_rate)
-
-    @pytest.mark.slow
-    def test_packed_engine_agreement(self, rng):
-        """Packed pallas posterior matches the (unpacked) XLA engine on
-        the same logical lanes."""
-        residues = {f"R{i}": self._small_residue(rng, 8000, 28 + i)
-                    for i in range(5)}
-        batch = bucket_residues(residues, consolidate=False)[0]
-        assert batch.pack == 4
-        cfg = GibbsConfig(ncomp=4, niter=1600, g=10, seed=2)
-        rp = run_batch(batch, cfg, engine="pallas")
-        rx = run_batch(batch, cfg, engine="xla")
-        b = 60
-        for i in range(batch.size):
-            # compare a label/splitting-invariant functional: the mixture
-            # mean residence time sum_k w_k / r_k (the dominant-component
-            # weight is NOT invariant — chains may split the dominant mass
-            # across equal-rate components for long stretches)
-            mt_p = (rp.mcweights[i][b:] / rp.mcrates[i][b:]).sum(-1)
-            mt_x = (rx.mcweights[i][b:] / rx.mcrates[i][b:]).sum(-1)
-            assert mt_p.mean() == pytest.approx(mt_x.mean(), rel=0.05)
-            assert mt_p.std() == pytest.approx(mt_x.std(), rel=0.5,
-                                               abs=0.2 * mt_x.mean())
-
-    @pytest.mark.slow
-    def test_multirow_packed_engine_agreement(self, rng):
-        """pack=2 lanes spanning several rows (the 64-column quantized
-        ladder for mid-size residues) agree with the XLA engine."""
-        residues = {f"M{i}": self._small_residue(rng, 12000, 150 + 7 * i,
-                                                 rate=1.0)
-                    for i in range(4)}
-        batches = bucket_residues(residues, consolidate=False)
-        assert all(b.pack == 2 for b in batches)
-        assert any(b.values.shape[1] > 64 for b in batches)
-        cfg = GibbsConfig(ncomp=4, niter=1600, g=10, seed=4)
-        b0 = 60
-        for batch in batches:
-            rp = run_batch(batch, cfg, engine="pallas")
-            rx = run_batch(batch, cfg, engine="xla")
-            for i in range(batch.size):
-                mt_p = (rp.mcweights[i][b0:] / rp.mcrates[i][b0:]).sum(-1)
-                mt_x = (rx.mcweights[i][b0:] / rx.mcrates[i][b0:]).sum(-1)
-                assert mt_p.mean() == pytest.approx(mt_x.mean(), rel=0.05)
-
-    @pytest.mark.slow
-    def test_multirow_packed_lane_isolation(self, rng):
-        """Multi-row packed pairs with very different kinetics recover
-        their own rates (no leakage across segments or rows)."""
-        # V=150 -> ceil(150/64)=3 rows (odd): the pack-2 multi-row class
-        fast = self._small_residue(rng, 9000, 150, rate=3.0)
-        slow = self._small_residue(rng, 9000, 150, rate=0.12)
-        batch = bucket_residues({"F0": fast, "S0": slow, "F1": fast,
-                                 "S1": slow}, consolidate=False)[0]
-        assert batch.pack == 2 and batch.values.shape[1] == 192
-        cfg = GibbsConfig(ncomp=4, niter=2000, g=10, seed=6)
-        res = run_batch(batch, cfg, engine="pallas")
-        for i, name in enumerate(res.names):
-            w = res.mcweights[i][60:]
-            r = res.mcrates[i][60:]
-            k = w.mean(0).argmax()
-            rate = r[:, k].mean()
-            if name.startswith("F"):
-                assert rate > 1.0, (name, rate)
-            else:
-                assert rate < 0.4, (name, rate)
-
-    @pytest.mark.slow
-    def test_even_row_packed_agreement_and_isolation(self, rng):
-        """The even-row pack-2 class (V in (64, 128] as two 64-column
-        rows per pair) the DP layout introduces: posterior agrees with
-        the XLA engine and fast/slow partners don't leak."""
-        residues = {}
-        for i in range(5):
-            residues[f"F{i}"] = self._small_residue(rng, 9000, 96 + i,
-                                                    rate=3.0)
-            residues[f"S{i}"] = self._small_residue(rng, 9000, 96 + i,
-                                                    rate=0.12)
-        # mixed_pack off: this test pins the DP's uniform 2-row pack-2
-        # class (the mixed post-pass would re-pair these near-equal-size
-        # members with per-lane boundaries; covered by the mixed tests)
-        batches = bucket_residues(residues, mixed_pack=False)
-        assert len(batches) == 1
-        batch = batches[0]
-        # 10 lanes of V~100: the DP must pick the 2-row pack-2 class
-        # (5 physical lanes x 2 rows beats 10 unpacked 128-wide rows)
-        assert batch.pack == 2 and batch.values.shape[1] == 128
-        cfg = GibbsConfig(ncomp=4, niter=2000, g=10, seed=7)
-        rp = run_batch(batch, cfg, engine="pallas")
-        rx = run_batch(batch, cfg, engine="xla")
-        b0 = 60
-        for i, name in enumerate(rp.names):
-            w = rp.mcweights[i][b0:]
-            r = rp.mcrates[i][b0:]
-            k = w.mean(0).argmax()
-            rate = r[:, k].mean()
-            if name.startswith("F"):
-                assert rate > 1.0, (name, rate)
-            else:
-                assert rate < 0.4, (name, rate)
-            mt_p = (w / r).sum(-1)
-            j = rx.names.index(name)
-            mt_x = (rx.mcweights[j][b0:] / rx.mcrates[j][b0:]).sum(-1)
-            assert mt_p.mean() == pytest.approx(mt_x.mean(), rel=0.05)
-
-    def test_mixed_kpack_layout(self, rng):
-        """_mixed_kpack: every member fits its slot capacity, lane widths
-        sum within 128 columns, members come back lane-major exactly
-        once, on random size mixes."""
-        from basicrta_tpu.sampler.batch import _mixed_kpack
-        for trial in range(20):
-            sizes = rng.integers(5, 900, rng.integers(2, 15))
-            group = [(f"R{i}", np.arange(1, s + 1, dtype=float),
-                      np.ones(s)) for i, s in enumerate(sizes)]
-            members, widths, SL = _mixed_kpack(group)
-            assert sorted(n for n, _, _ in members) == sorted(
-                f"R{i}" for i in range(len(sizes)))
-            Bph, pack = widths.shape
-            assert 2 <= pack <= 12 or len(sizes) == 1
-            assert (widths.sum(axis=1) <= 128).all()
-            assert (widths >= 0).all()
-            # lane-major member order: the j-th member owns the j-th
-            # nonzero width, and fits its SL x width slot
-            ws = widths[widths > 0]
-            assert len(ws) == len(members)
-            for (name, v, _), w in zip(members, ws):
-                assert len(v) <= SL * int(w), (name, len(v), SL, int(w))
-
-    def test_kmax_knob_monotone_and_complete(self, rng):
-        """bucket_residues(kmax=...): every member appears exactly once
-        at every kmax, slot widths respect the cap, and the endpoint
-        kmax=12 layout models no more work than kmax=2 (per-group k-way
-        cost is non-increasing in kmax; the greedy merge pass makes
-        strict per-step monotonicity theoretical, so only the endpoints
-        are asserted)."""
-        from basicrta_tpu.sampler.batch import modeled_work_waste
-        residues = {f"R{i}": self._small_residue(
-            rng, int(10 ** rng.uniform(2.3, 4.0)),
-            max(int(10 ** rng.uniform(1.0, 2.8)), 8))
-            for i in range(40)}
-        waste = {}
-        for kmax in (2, 4, 8, 12):
-            batches = bucket_residues(residues, kmax=kmax)
-            names = sorted(n for b in batches for n in b.names)
-            assert names == sorted(residues)
-            for b in batches:
-                if b.bounds is not None:
-                    assert b.bounds.shape[1] <= kmax
-                    assert (b.bounds.sum(axis=1) <= 128).all()
-            waste[kmax] = modeled_work_waste(batches)
-        assert waste[12] <= waste[2] + 1e-9, waste
-
-    def test_pack_mixed_roundtrip(self, rng):
-        """_pack_mixed places every member's cells exactly in its own
-        segment (seg-id-consistent, count-preserving, value-aligned),
-        with variable fill and empty slots."""
-        from basicrta_tpu.sampler.batch import _pack_mixed
-        for trial in range(10):
-            Bph = int(rng.integers(1, 6))
-            SL = int(rng.integers(1, 5))
-            pack = int(rng.integers(2, 9))
-            # random widths: each lane gets 0..pack members whose widths
-            # sum <= 128 (leading slots filled first, like _mixed_kpack)
-            widths = np.zeros((Bph, pack), np.int64)
-            for g in range(Bph):
-                free = 128
-                for s in range(int(rng.integers(0, pack + 1))):
-                    if free <= 0:
-                        break
-                    w = int(rng.integers(1, free + 1))
-                    widths[g, s] = w
-                    free -= w
-            B = int((widths > 0).sum())
-            V = SL * 128
-            values = np.ones((B, V), np.float32)
-            counts = np.zeros((B, V), np.float32)
-            ws = widths[widths > 0]
-            for i in range(B):
-                live = int(rng.integers(0, SL * int(ws[i]) + 1))
-                values[i, :live] = rng.uniform(0.1, 9.0, live)
-                counts[i, :live] = rng.integers(1, 50, live)
-            v_ph, c_ph, seg_id, slot_idx = _pack_mixed(values, counts,
-                                                       widths, SL)
-            assert seg_id.shape == (Bph, 128)
-            assert len(slot_idx) == B
-            i = 0
-            for g in range(Bph):
-                off = 0
-                for s in range(pack):
-                    w = int(widths[g, s])
-                    if w == 0:
-                        continue
-                    assert slot_idx[i] == g * pack + s
-                    assert (seg_id[g, off:off + w] == s).all()
-                    seg_c = c_ph[g, :, off:off + w].reshape(-1)
-                    seg_v = v_ph[g, :, off:off + w].reshape(-1)
-                    live = int((counts[i] > 0).sum())
-                    assert np.array_equal(seg_c[:live], counts[i, :live])
-                    assert np.array_equal(seg_v[:live], values[i, :live])
-                    assert not seg_c[live:].any()
-                    off += w
-                    i += 1
-            # count mass is conserved exactly
-            assert c_ph.sum() == counts.sum()
-
-    @pytest.mark.slow
-    def test_mixed_packed_engine_agreement_and_isolation(self, rng):
-        """Mixed-width pack-2 buckets (heterogeneous V, per-lane boundary
-        — the round-3 straggler fix): posterior agrees with the XLA
-        engine on the same lanes and fast/slow partners don't leak."""
-        residues = {}
-        for i in range(5):
-            residues[f"F{i}"] = self._small_residue(rng, 9000, 330 + 9 * i,
-                                                    rate=3.0)
-            residues[f"S{i}"] = self._small_residue(rng, 9000, 90 + 7 * i,
-                                                    rate=0.12)
-        batches = bucket_residues(residues)
-        mixed = [b for b in batches if b.bounds is not None]
-        assert mixed, [(b.values.shape, b.pack) for b in batches]
-        cfg = GibbsConfig(ncomp=4, niter=1600, g=10, seed=9)
-        b0 = 60
-        for batch in batches:
-            assert batch.pack >= 2
-            rp = run_batch(batch, cfg, engine="pallas")
-            rx = run_batch(batch, cfg, engine="xla")
-            for i, name in enumerate(rp.names):
-                w = rp.mcweights[i][b0:]
-                r = rp.mcrates[i][b0:]
-                k = w.mean(0).argmax()
-                rate = r[:, k].mean()
-                if name.startswith("F"):
-                    assert rate > 1.0, (name, rate)
-                else:
-                    assert rate < 0.4, (name, rate)
-                mt_p = (w / r).sum(-1)
-                j = rx.names.index(name)
-                mt_x = (rx.mcweights[j][b0:] / rx.mcrates[j][b0:]).sum(-1)
-                assert mt_p.mean() == pytest.approx(mt_x.mean(), rel=0.05)
-
-    @pytest.mark.slow
-    def test_mixed_packed_segmentation_exact(self, rng):
-        """A mixed-bucket run is bit-exact under any segmentation (the
-        RNG is seeded per absolute sweep index, so checkpoint/resume and
-        progress segmentation cannot perturb the chain)."""
-        # widths heterogeneous enough that the (round-5 re-calibrated)
-        # cost model still adopts the mixed k-way packing (the dryrun's
-        # mixed-workload shape); the narrower round-4 fixture now lands
-        # in a uniform pack-2 class instead
-        residues = {f"M{i}": 0.1 * rng.integers(1, 60 + 200 * (i % 2), 800)
-                    for i in range(24)}
-        batches = bucket_residues(residues)
-        batch = next((b for b in batches if b.bounds is not None), None)
-        assert batch is not None, [
-            (b.values.shape, b.pack, b.bounds is not None) for b in batches]
-        cfg = GibbsConfig(ncomp=3, niter=400, g=10, seed=3)
-        whole = run_batch(batch, cfg, engine="pallas")
-        seg = run_batch(batch, cfg, engine="pallas", segment_blocks=13)
-        assert np.array_equal(whole.mcweights, seg.mcweights)
-        assert np.array_equal(whole.mcrates, seg.mcrates)
-
-    @pytest.mark.slow
-    def test_dp_layout_dominates_greedy(self, rng):
-        """The DP partition never models more work than the raw
-        _pack_choice ladder (the mixed post-pass only ever lowers a
-        bucket's modeled cost further), and keeps every residue exactly
-        once with a fitting width."""
-        from basicrta_tpu.sampler.batch import _bucket_cost, _mixed_cost
-
-        residues = {}
-        for i in range(60):
-            vmax = int(10 ** rng.uniform(1.0, 2.8))
-            residues[f"R{i}"] = self._small_residue(
-                rng, int(10 ** rng.uniform(2.3, 4.2)), max(vmax, 8),
-                rate=float(rng.uniform(0.3, 3.0)))
-
-        def total(batches):
-            out = 0.0
-            for b in batches:
-                if b.bounds is not None:
-                    out += _mixed_cost(
-                        list(zip(b.names, b.values, b.counts)),
-                        b.bounds, b.phys_rows)
-                else:
-                    out += _bucket_cost(
-                        list(zip(b.names, b.values, b.counts)),
-                        b.counts.shape[1], b.pack)
-            return out
-
-        dp = bucket_residues(residues)
-        raw = bucket_residues(residues, consolidate=False)
-        assert total(dp) <= total(raw)
-        names = sorted(n for b in dp for n in b.names)
-        assert names == sorted(residues)
-        for b in dp:
-            for i in range(b.size):
-                assert (b.counts[i] > 0).sum() <= b.values.shape[1]
-                if b.pack > 1 and b.bounds is None:
-                    assert b.values.shape[1] % (128 // b.pack) == 0
-                if b.bounds is not None:
-                    # every member fits its own slot's capacity (k-way
-                    # layout: b.bounds is the (Bph, pack) slot-width
-                    # table, members lane-major in slot order)
-                    assert b.pack >= 2 and b.phys_rows >= 1
-                    assert (b.bounds.sum(axis=1) <= 128).all()
-                    ws = b.bounds[b.bounds > 0]
-                    assert len(ws) == b.size
-                    for i in range(b.size):
-                        live = int((b.counts[i] > 0).sum())
-                        assert live <= b.phys_rows * int(ws[i])
-
-    @pytest.mark.slow
-    def test_packed_checkpoint_resume_exact(self, rng, tmp_path):
-        """Segment-keyed RNG makes packed runs resume bit-exactly."""
-        residues = {f"R{i}": self._small_residue(rng, 1000, 24)
-                    for i in range(3)}
-        batch = bucket_residues(residues, consolidate=False)[0]
-        assert batch.pack == 4
-        cfg = GibbsConfig(ncomp=3, niter=400, g=10, seed=9)
-        full = run_batch(batch, cfg, engine="pallas")
-
-        calls = {"n": 0}
-        ck = str(tmp_path / "ck.npz")
-
-        class Stop(Exception):
-            pass
-
-        def boom(*a, **k):
-            calls["n"] += 1
-            if calls["n"] == 2:
-                raise Stop
-
-        try:
-            run_batch(batch, cfg, engine="pallas", segment_blocks=10,
-                      checkpoint_path=ck, checkpoint_cb=boom)
-        except Stop:
-            pass
-        resumed = run_batch(batch, cfg, engine="pallas",
-                            segment_blocks=10, checkpoint_path=ck)
-        np.testing.assert_array_equal(resumed.mcweights, full.mcweights)
-        np.testing.assert_array_equal(resumed.mcrates, full.mcrates)
-
-
 class TestPreciseTranscendentals:
-    """_log_f32/_exp_f32/_pow_smallint: the in-kernel replacements for the
-    VPU's ~7e-5-relative-error native log/exp, whose n-fold amplification
-    in pmf0 = exp(n log q) measurably biased binomial draws on hardware
-    (VALIDATION.md 'Device PRNG'). Target ~2 ulp."""
+    """log_f32/exp_f32/pow_smallint (ops.precise): polynomial log/exp for
+    the XLA engine's amplified sites, pmf0 = exp(n log q) above all.
+    Target ~2 ulp."""
 
     def test_log_accuracy(self, rng):
-        from basicrta_tpu.sampler.pallas_sweep import _log_f32
+        from basicrta_tpu.ops.precise import log_f32
         x = np.concatenate([
             rng.uniform(1e-30, 1e-6, 2000),
             rng.uniform(1e-6, 1.0, 20000),
             rng.uniform(1.0, 1e6, 20000),
             [1.0, 0.5, 2.0, 1.4142135, 0.65]]).astype(np.float32)
-        got = np.asarray(_log_f32(jnp.asarray(x)))
+        got = np.asarray(log_f32(jnp.asarray(x)))
         ref = np.log(x.astype(np.float64))
         rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-10)
         assert rel.max() < 5e-7
-        assert float(_log_f32(jnp.float32(1.0))) == 0.0
+        assert float(log_f32(jnp.float32(1.0))) == 0.0
 
     def test_exp_accuracy(self, rng):
-        from basicrta_tpu.sampler.pallas_sweep import _exp_f32
+        from basicrta_tpu.ops.precise import exp_f32
         x = np.concatenate([rng.uniform(-80, 80, 40000),
                             [0.0, 1.0, -1.0, 80.0, -80.0]]).astype(
             np.float32)
-        got = np.asarray(_exp_f32(jnp.asarray(x)))
+        got = np.asarray(exp_f32(jnp.asarray(x)))
         ref = np.exp(x.astype(np.float64))
         assert np.abs(got / ref - 1).max() < 5e-7
-        assert float(_exp_f32(jnp.float32(0.0))) == 1.0
+        assert float(exp_f32(jnp.float32(0.0))) == 1.0
 
     def test_pow_smallint_exact(self, rng):
-        from basicrta_tpu.sampler.pallas_sweep import _pow_smallint
+        from basicrta_tpu.ops.precise import pow_smallint
         q = rng.uniform(0.01, 1.0, 200).astype(np.float32)
         for n in range(0, 32):
-            got = np.asarray(_pow_smallint(
+            got = np.asarray(pow_smallint(
                 jnp.asarray(q), jnp.full(200, float(n), jnp.float32), 5))
             ref = q.astype(np.float64) ** n
             ok = ref > 1e-35       # f32-representable (no underflow)
@@ -649,11 +153,11 @@ class TestPreciseTranscendentals:
         """The defect's reproduction: sum of binomial pmf via the
         recurrence must reach 1 to f32 accuracy for every (n, p) the
         inversion tiers see."""
-        from basicrta_tpu.sampler.pallas_sweep import _exp_f32, _log_f32
+        from basicrta_tpu.ops.precise import exp_f32, log_f32
         for n, p in [(16, 0.35), (100, 0.02), (500, 0.004), (31, 0.3)]:
             q = 1.0 - p
-            pmf = float(np.asarray(_exp_f32(jnp.float32(
-                n) * _log_f32(jnp.float32(q)))))
+            pmf = float(np.asarray(exp_f32(jnp.float32(
+                n) * log_f32(jnp.float32(q)))))
             total = pmf
             for t in range(min(n, 64)):
                 pmf = pmf * (p / q) * (n - t) / (t + 1.0)

@@ -1,4 +1,4 @@
-"""Statistical validation of the branch-free TPU samplers against scipy."""
+"""Statistical validation of the branch-free samplers against scipy."""
 
 import jax
 import jax.numpy as jnp
